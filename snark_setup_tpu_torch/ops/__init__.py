@@ -1,0 +1,19 @@
+"""Device ops: multi-limb Montgomery field arithmetic, curve group law,
+GLV scalar multiplication and the batched point codec — the hot loops of the
+ceremony, as plain PyTorch on limb planes plus two CUDA kernels.
+
+    fp.py          — vectorised limb arithmetic (plain PyTorch)
+    ext.py         — the degree-1 field-ops protocol the curve code is written against
+    glv.py         — GLV parameter derivation and decomposition
+    curve.py       — complete projective group law and batch scalar-mul
+    codec.py       — batched point (de)serialisation
+    cuda_glv.py    — GLV digits kernel wrapper + its plain version
+    cuda_ladder.py — whole-ladder kernel wrapper + its plain version
+    build.py       — nvcc build + ctypes load of csrc/*.cu
+    convert.py     — limb planes between numpy (reference layout) and torch
+"""
+
+from .fp import FpOps
+from .curve import CurveOps
+
+__all__ = ["FpOps", "CurveOps"]

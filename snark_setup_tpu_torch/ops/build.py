@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` exposes a plain C interface and is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library, then loaded with
+``ctypes`` — seconds per source, against minutes for a source that includes
+PyTorch's headers. Libraries are built at first use, from the sources in this
+checkout only, into ``build/snark_setup_tpu_torch/`` beside the package,
+under a name keyed on a hash of
+every file in ``csrc/`` and the flags: an edited source never loads a stale
+library. A failed build or load raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# library name -> (source file, extra defines). The ladder is instantiated
+# once per limb count (NL 32-bit limbs = L/2): separate libraries build in
+# parallel and keep each compilation unit small.
+TARGETS = {
+    "glv_digits": ("glv_digits.cu", []),
+    "glv_ladder_nl12": ("glv_ladder.cu", ["-DNL=12"]),
+    "glv_ladder_nl24": ("glv_ladder.cu", ["-DNL=24"]),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+build_logs: dict[str, str] = {}
+"""nvcc's output per target built by this process (`-Xptxas -v` figures)."""
+
+
+def build_dir() -> str:
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    root = os.path.join(repo, "build", "snark_setup_tpu_torch")
+    os.makedirs(root, exist_ok=True)
+    return root
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels")
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(target: str) -> str:
+    _, defines = TARGETS[target]
+    tag = hashlib.sha256((_sources_hash() + " ".join(defines)).encode()).hexdigest()[:12]
+    return os.path.join(build_dir(), f"lib{target}_{tag}.so")
+
+
+def _start_build(target: str, nvcc: str):
+    src, defines = TARGETS[target]
+    out = _lib_path(target)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, *defines, "-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, cmd, tmp, out
+
+
+def build(targets=None) -> dict[str, str]:
+    """Build every missing library of `targets` (default: all), one nvcc
+    process per target, all started together. Returns {target: path}."""
+    targets = list(TARGETS) if targets is None else list(targets)
+    with _lock:
+        missing = [t for t in targets if not os.path.exists(_lib_path(t))]
+        if missing:
+            nvcc = find_nvcc()
+            jobs = {t: _start_build(t, nvcc) for t in missing}
+            failures = []
+            for t, (proc, cmd, tmp, out) in jobs.items():
+                log, _ = proc.communicate()
+                build_logs[t] = log
+                if proc.returncode != 0:
+                    failures.append(f"{' '.join(cmd)}\n{log}")
+                    if os.path.exists(tmp):
+                        os.remove(tmp)
+                else:
+                    os.replace(tmp, out)
+            if failures:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return {t: _lib_path(t) for t in targets}
+
+
+def load(target: str) -> ctypes.CDLL:
+    """The loaded library for `target`, building it first if needed."""
+    lib = _loaded.get(target)
+    if lib is None:
+        path = build()[target]  # all targets at once: the nvcc runs overlap
+        lib = ctypes.CDLL(path)
+        _loaded[target] = lib
+    return lib

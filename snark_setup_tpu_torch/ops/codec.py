@@ -1,0 +1,360 @@
+"""Batched on-device point (de)serialization — the replacement for the
+reference's BatchDeserializer/BatchSerializer (C17, setup-utils/src/io/).
+
+Byte<->limb packing is vectorized numpy on the host (pure data movement);
+the expensive parts — Montgomery conversion, modular sqrt for decompression,
+on-curve checks, batch normalization, sign flags — run on the codec's device
+over the whole batch, in the limbs-leading (L, B) layout (see fp.py).
+
+Wire format is the arkworks encoding (see serialize/arkworks.py): LE field
+bytes, flags in the top 2 bits of an element's final byte.
+
+Scope: degree-1 coordinate fields (the groups CurveOps covers).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields.limb import int_to_limbs
+from ..utils.device import resolve_device
+from ..utils.enums import CheckForCorrectness, SubgroupCheckMode, UseCompression
+from ..utils.errors import PointAtInfinityError, SerializationError
+from .curve import CurveOps, PointVec, curve_ops
+from .fp import _sub_with_borrow
+
+FLAG_Y_NEG = 1 << 7
+FLAG_INFINITY = 1 << 6
+FLAG_MASK = FLAG_Y_NEG | FLAG_INFINITY
+
+
+def ext_pow_const(F, a, e: int):
+    """a^e in a field-ops object for a host-known (public) exponent."""
+    if e == 0:
+        return F.ones(a.shape[1:], a.device)
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = F.mul(acc, acc)
+        if bit == "1":
+            acc = F.mul(acc, a)
+    return acc
+
+
+class ExtSqrt:
+    """Branchless Tonelli–Shanks over Fq on device."""
+
+    def __init__(self, F, q: int):
+        self.F = F
+        self.q = q
+        self.group_order = q - 1
+        s, e = self.group_order, 0
+        while s % 2 == 0:
+            s //= 2
+            e += 1
+        self.e, self.s = e, s
+        self._find_nonresidue()
+
+    def _find_nonresidue(self):
+        import random
+
+        rng = random.Random(99)
+        half = self.group_order // 2
+        while True:
+            z = rng.randrange(self.q)
+            if pow(z, half, self.q) != 1:
+                self.z = z
+                break
+
+    def c_init(self) -> np.ndarray:
+        """(L, 1) host constant: z^s, generator of the 2-Sylow group."""
+        return self.F.from_coeffs([pow(self.z, self.s, self.q)])
+
+    def sqrt(self, a):
+        """(root, is_square mask). The loop bounds depend only on the
+        field's 2-adicity, never on the data."""
+        F = self.F
+        if self.e == 1:
+            r = ext_pow_const(F, a, (self.group_order + 2) // 4)
+            ok = F.eq(F.mul(r, r), a) | F.is_zero(a)
+            return r, ok
+        w = ext_pow_const(F, a, (self.s - 1) // 2)
+        r = F.mul(a, w)
+        t = F.mul(r, w)
+        c = F.fp.const_of(("sqrt_c", self.q), self.c_init(), a).expand_as(a)
+        one = F.ones(a.shape[1:], a.device)
+        for i in range(self.e, 1, -1):
+            b = t
+            for _ in range(i - 2):
+                b = F.mul(b, b)
+            flip = ~F.eq(b, one)
+            r = F.select(flip, F.mul(r, c), r)
+            c = F.mul(c, c)
+            t = F.select(flip, F.mul(t, c), t)
+        ok = F.eq(F.mul(r, r), a) | F.is_zero(a)
+        return r, ok
+
+
+class BatchPointCodec:
+    """Vectorized device codec for one source group on one device."""
+
+    def __init__(self, ops: CurveOps, device=None):
+        self.ops = ops
+        self.device = resolve_device(device)
+        self.F = ops.field
+        self.fp = ops.fq
+        self.spec = ops.spec
+        self.deg = 1
+        self.fp_bytes = ops.spec.fp_bytes
+        self.compressed_size = self.fp_bytes
+        self.uncompressed_size = 2 * self.compressed_size
+        self.sqrter = ExtSqrt(self.F, ops.spec.q)
+        self._q_limbs = int_to_limbs(self.spec.q, self.fp.L)
+        self._write_selfchecked = False
+
+    def size(self, compression: UseCompression) -> int:
+        return (
+            self.compressed_size
+            if compression is UseCompression.YES
+            else self.uncompressed_size
+        )
+
+    # -- numpy byte <-> raw (standard form) limb planes -------------------
+    def _bytes_to_fp_limbs(self, buf: np.ndarray) -> np.ndarray:
+        """(B, fp_bytes) uint8 -> (L, B) int32 (standard form, unmasked)."""
+        B = buf.shape[0]
+        want = 2 * self.fp.L
+        padded = np.zeros((B, want), np.uint8)
+        padded[:, : self.fp_bytes] = buf
+        u16 = padded.view("<u2")
+        return np.ascontiguousarray(u16.astype(np.int32).T)
+
+    def _fp_limbs_to_bytes(self, limbs: np.ndarray) -> np.ndarray:
+        """(L, B) integer limbs -> (B, fp_bytes) uint8."""
+        u16 = np.asarray(limbs).T.astype("<u2")
+        raw = np.ascontiguousarray(u16).view(np.uint8)
+        return raw[:, : self.fp_bytes]
+
+    def _parse_coord(self, buf: np.ndarray, mask_flags: bool):
+        """(B, fp_bytes) -> (raw limbs (L, B), flags (B,))."""
+        flags = (buf[:, -1] & FLAG_MASK).copy()
+        work = buf.copy()
+        if mask_flags:
+            work[:, -1] &= ~FLAG_MASK & 0xFF
+        return self._bytes_to_fp_limbs(work), flags
+
+    def _range_check(self, raw: np.ndarray) -> np.ndarray:
+        """True where the coordinate < q (vectorized bigint compare).
+        raw: (L, B) -> (B,)."""
+        lt = np.zeros(raw.shape[1], bool)
+        decided = np.zeros(raw.shape[1], bool)
+        for k in range(self.fp.L - 1, -1, -1):
+            less = raw[k] < self._q_limbs[k]
+            more = raw[k] > self._q_limbs[k]
+            lt |= (~decided) & less
+            decided |= less | more
+        return lt  # equal -> not < q -> invalid
+
+    # -- lexicographic y comparison ("is negative" flag) -------------------
+    def y_is_negative(self, y_mont: torch.Tensor) -> torch.Tensor:
+        """y > -y as integers. Returns a (B,) bool tensor. Works on
+        Montgomery inputs."""
+        c = self.fp.from_mont(y_mont)
+        n = self.fp.neg(c)
+        _, borrow_gt = _sub_with_borrow(n, c)  # c > n  <=>  n - c borrows
+        return borrow_gt
+
+    # -- curve equation ----------------------------------------------------
+    def rhs(self, x):
+        """x^3 + b in the coordinate field (device, Montgomery)."""
+        F = self.F
+        x3 = F.mul(F.mul(x, x), x)
+        return F.add(x3, self.ops._const("b_np", x).expand_as(x))
+
+    def on_curve_mask(self, p: PointVec):
+        """Affine (Z in {0,1}) points: y^2 == rhs(x) or infinity."""
+        F = self.F
+        ok = F.eq(F.mul(p["y"], p["y"]), self.rhs(p["x"]))
+        return ok | self.ops.is_infinity(p)
+
+    # -- public batch API --------------------------------------------------
+    def read_batch(
+        self,
+        data,
+        compression: UseCompression,
+        check: CheckForCorrectness = CheckForCorrectness.NO,
+        subgroup_mode: SubgroupCheckMode = SubgroupCheckMode.AUTO,
+        pad_to: int | None = None,
+    ) -> PointVec:
+        """Parse a contiguous batch of points into device projective form
+        (Z=1, or Z=0 for infinity). Raises on malformed/invalid content
+        according to `check` (mirrors reference read_batch semantics).
+
+        `pad_to` pads the batch with infinity points up to a fixed size;
+        validation ignores the padding."""
+        size = self.size(compression)
+        buf = (
+            np.frombuffer(data, np.uint8)
+            if isinstance(data, (bytes, bytearray, memoryview))
+            else np.asarray(data, np.uint8)
+        )
+        if buf.size % size:
+            raise SerializationError(f"batch length {buf.size} not multiple of {size}")
+        n = buf.size // size
+        rows = buf.reshape(n, size)
+        if pad_to is not None and pad_to > n:
+            pad_rows = np.zeros((pad_to - n, size), np.uint8)
+            # mark padding as infinity via the flag byte of the final coord
+            pad_rows[:, -1] = FLAG_INFINITY
+            rows = np.concatenate([rows, pad_rows], axis=0)
+
+        if compression is UseCompression.YES:
+            x_raw, flags = self._parse_coord(rows, mask_flags=True)
+            y_raw = None
+            in_range = self._range_check(x_raw).all()
+        else:
+            x_raw, _xf = self._parse_coord(rows[:, : self.compressed_size], mask_flags=False)
+            y_raw, flags = self._parse_coord(rows[:, self.compressed_size :], mask_flags=True)
+            in_range = self._range_check(x_raw).all() and self._range_check(y_raw).all()
+        if not in_range:
+            raise SerializationError("coordinate out of field range")
+        inf = (flags & FLAG_INFINITY) != 0
+        neg = (flags & FLAG_Y_NEG) != 0
+        if (inf & neg).any():
+            raise SerializationError("invalid flags (both set)")
+
+        dev = self.device
+        inf_d = torch.from_numpy(inf).to(dev)
+        x = self.fp.to_mont_raw(torch.from_numpy(x_raw).to(dev))
+        if y_raw is None:
+            y, ok = self.sqrter.sqrt(self.rhs(x))
+            if not bool((ok | inf_d).all()):
+                raise SerializationError("x not on curve (no sqrt)")
+            flip = self.y_is_negative(y) != torch.from_numpy(neg).to(dev)
+            y = self.F.select(flip, self.F.neg(y), y)
+        else:
+            y = self.fp.to_mont_raw(torch.from_numpy(y_raw).to(dev))
+        F = self.F
+        one, zero = F.ones((1,), dev), F.zeros((1,), dev)
+        p = PointVec(
+            x=F.select(inf_d, zero, x), y=F.select(inf_d, one, y), z=F.select(inf_d, zero, one)
+        )
+        self.validate(p, check, subgroup_mode, compression, n_valid=n)
+        return p
+
+    def validate(
+        self,
+        p: PointVec,
+        check: CheckForCorrectness,
+        subgroup_mode: SubgroupCheckMode = SubgroupCheckMode.AUTO,
+        compression: UseCompression = UseCompression.NO,
+        n_valid: int | None = None,
+    ) -> None:
+        if check is CheckForCorrectness.NO:
+            return
+        if check is not CheckForCorrectness.ONLY_NON_ZERO:
+            raise NotImplementedError(
+                f"{check}: on-device subgroup checks are not ported yet "
+                "(ROADMAP Queue A, 'verification'); use NO or ONLY_NON_ZERO"
+            )
+        inf = self.ops.is_infinity(p)
+        batch = int(inf.shape[-1])
+        valid = torch.arange(batch, device=inf.device) < (batch if n_valid is None else n_valid)
+        if bool((inf & valid).any()):
+            raise PointAtInfinityError("point at infinity in batch")
+
+    def _write_device(self, p: PointVec, normalized: bool = False):
+        if normalized:
+            x, y, inf = p["x"], p["y"], self.ops.is_infinity(p)
+        else:
+            x, y, inf = self.ops.normalize(p)
+        neg = self.y_is_negative(y)
+        return self.fp.from_mont(x), self.fp.from_mont(y), inf, neg
+
+    def write_batch_start(self, p: PointVec, normalized: bool = False):
+        """Device half of write_batch: normalize, de-Montgomery, sign and
+        infinity flags, then a plain synchronous copy of the four outputs to
+        the host. Returns them as numpy arrays for write_batch_finish."""
+        return tuple(t.cpu().numpy() for t in self._write_device(p, normalized))
+
+    def write_batch_finish(
+        self,
+        handle,
+        compression: UseCompression,
+        n_valid: int | None = None,
+    ) -> bytes:
+        """Host half of write_batch: pack wire bytes."""
+        out = self._finish_one(handle, compression, n_valid)
+        if not self._write_selfchecked and out:
+            self._selfcheck_write(out, compression)
+        return out
+
+    # One-time (per codec instance) host cross-check of written bytes: for
+    # a ceremony tool corrupt output is the worst failure mode. Parsing a
+    # few points of the first written batch with the independent HOST codec
+    # (on-curve + subgroup check included) turns a wrong device result into
+    # a loud error at negligible cost.
+    def _selfcheck_write(self, out: bytes, compression: UseCompression) -> None:
+        from ..serialize.arkworks import g1_codec, g2_codec
+
+        hostc = (
+            g1_codec(self.spec)
+            if self.ops.group_name == "g1"
+            else g2_codec(self.spec)
+        )
+        size = self.size(compression)
+        n = min(4, len(out) // size)
+        for i in range(n):
+            hostc.deserialize(
+                out[i * size : (i + 1) * size],
+                compression,
+                CheckForCorrectness.ONLY_IN_GROUP,
+            )
+        self._write_selfchecked = True
+
+    def _finish_one(self, parts, compression: UseCompression, n_valid: int | None = None) -> bytes:
+        x_std, y_std, inf_np, neg = parts
+        if n_valid is not None:
+            x_std = x_std[..., :n_valid]
+            y_std = y_std[..., :n_valid]
+            inf_np = inf_np[:n_valid]
+            neg = neg[:n_valid]
+        # zero out coords at infinity
+        x_std = np.where(inf_np, 0, x_std)
+        y_std = np.where(inf_np, 0, y_std)
+        flags = np.where(inf_np, FLAG_INFINITY, np.where(~inf_np & neg, FLAG_Y_NEG, 0))
+        if compression is UseCompression.YES:
+            out = self._fp_limbs_to_bytes(x_std)
+            out[:, -1] |= flags.astype(np.uint8)
+        else:
+            xb = self._fp_limbs_to_bytes(x_std)
+            yb = self._fp_limbs_to_bytes(y_std)
+            yb[:, -1] |= flags.astype(np.uint8)
+            out = np.concatenate([xb, yb], axis=1)
+        return out.tobytes()
+
+    def write_batch(
+        self,
+        p: PointVec,
+        compression: UseCompression,
+        normalized: bool = False,
+        n_valid: int | None = None,
+    ) -> bytes:
+        """Device points -> wire bytes. Normalizes (batch-inverts Z) unless
+        the caller guarantees affine form. `n_valid` drops padding rows."""
+        return self.write_batch_finish(
+            self.write_batch_start(p, normalized), compression, n_valid
+        )
+
+
+_codecs: dict = {}
+
+
+def batch_codec(curve_name: str, group: str, device=None) -> BatchPointCodec:
+    """The codec of one (curve, group) on one device (default: the card)."""
+    dev = resolve_device(device)
+    ops = curve_ops(curve_name, group)
+    key = (ops, dev)
+    if key not in _codecs:
+        _codecs[key] = BatchPointCodec(ops, dev)
+    return _codecs[key]

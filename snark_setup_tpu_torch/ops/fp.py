@@ -1,0 +1,357 @@
+"""Vectorised multi-limb Montgomery field arithmetic in plain PyTorch.
+
+This is the port's plain field layer: everything on the contribute path that
+is not one of the two CUDA kernels (Montgomery conversion, tau powers, batch
+inversion, sign flags) runs through it, on the card or on the CPU alike.
+
+Layout and conventions (identical to the reference at every seam):
+
+- Field elements are little-endian vectors of 16-bit limbs, **limbs-leading**:
+  shape ``(L, *batch)``, batch axes last, Montgomery form with
+  ``R = 2^(16 L)``. Every public function returns the canonical value
+  ``< N``, so results agree with the reference limb for limb.
+- Limbs are carried as ``torch.int32`` (values ``< 2^16``; PyTorch on the CPU
+  cannot add, shift or compare ``uint32``). The CUDA kernels reinterpret the
+  same memory as ``uint32``. Products are computed in ``torch.int64``: a full
+  32-bit limb product and a column of up to ``L`` of them fit without the
+  lo/hi split a 32-bit lane needs, so `school_cols` returns columns
+  ``< L * 2^32`` instead of the reference's ``< 2^23`` — the represented
+  value is the same.
+- Carry resolution folds the high parts down until limbs are ``< 2^17`` and
+  finishes with a carry-lookahead written as one running-maximum scan over
+  the limb axis (`_ks_carry`): few launches, no data-dependent loop.
+- Constants live in the ops object as host numpy and are materialised once
+  per device on first use.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..fields.limb import (
+    LIMB_BITS,
+    LIMB_MASK,
+    LimbSpec,
+    int_to_limbs,
+    ints_to_limbs_batch,
+    limbs_batch_to_ints,
+)
+
+MASK = LIMB_MASK
+SHIFT = LIMB_BITS
+
+
+def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Shift limbs towards higher indices by d (zero-fill), axis 0."""
+    if d == 0:
+        return x
+    return torch.constant_pad_nd(x[:-d], [0, 0] * (x.ndim - 1) + [d, 0])
+
+
+@functools.lru_cache(maxsize=None)
+def _limb_codes(L: int, ndim: int, dtype, device) -> torch.Tensor:
+    """2(k+1) for limb k, shaped (L, 1, ..., 1): the position part of the
+    carry-lookahead codes of `_ks_carry`."""
+    pos = torch.arange(2, 2 * L + 2, 2, dtype=dtype, device=device)
+    return pos.reshape(L, *([1] * (ndim - 1)))
+
+
+def _ks_carry(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Binary carry resolution for limbs v < 2^17 by carry-lookahead.
+    Returns (limbs < 2^16, carry out of the top limb as 0/1).
+
+    A limb *decides* its carry-out unless it is exactly 0xFFFF (no generate,
+    full propagate); a deciding limb's carry-out is its generate bit v >> 16
+    whatever comes in (callers keep v + carry-in < 2^17: folded columns are
+    <= 0x1FFFE, and a complement's 0x1FFFF can occur only at limb 0). The carry
+    out of limb k is therefore the generate bit of the most recent deciding
+    limb <= k, found with one cummax over codes 2(k+1)+g."""
+    g = v >> SHIFT
+    pos = _limb_codes(v.shape[0], v.ndim, v.dtype, v.device)
+    code = torch.where(v != MASK, pos + g, 0)
+    carry_out = torch.cummax(code, dim=0).values & 1
+    out = ((v & MASK) + _shift_up(carry_out, 1)) & MASK
+    return out, carry_out[-1]
+
+
+def _resolve_carries(cols: torch.Tensor, bits: int = 32) -> torch.Tensor:
+    """Propagate carries along axis 0. Input limbs are non-negative and
+    < 2^bits (host-known bound, <= 62); output limbs < 2^16 with the final
+    carry dropped (callers guarantee the value fits). Redundant folding
+    rounds bring limbs under 2^17, then the lookahead finishes."""
+    assert bits <= 62
+    v = cols
+    while bits > 32:
+        v = (v & MASK) + _shift_up(v >> SHIFT, 1)
+        bits = bits - SHIFT + 1
+    v = (v & MASK) + _shift_up(v >> SHIFT, 1)
+    out, _ = _ks_carry(v)
+    return out
+
+
+def _sub_with_borrow(a: torch.Tensor, b: torch.Tensor):
+    """a - b limbwise (axis 0); returns (diff limbs, final borrow mask).
+    Two's-complement addition in base 2^16 with carry-lookahead."""
+    comp = MASK - b
+    comp[0] += 1
+    return _add_complement(a, comp)
+
+
+def _add_complement(a: torch.Tensor, comp_b: torch.Tensor):
+    """(a - b limbs, borrow mask) from a and the unresolved limbs of
+    2^(16 L) - b: (0xFFFF - b) + 1 at limb 0."""
+    out, top_carry = _ks_carry(a + comp_b)  # limbs < 2^17
+    return out, top_carry == 0
+
+
+def _broadcast_rest(sa, sb) -> tuple:
+    """Broadcast of two batch shapes (right-aligned, sizes equal or 1)."""
+    if len(sa) < len(sb):
+        sa, sb = sb, sa
+    sb = (1,) * (len(sa) - len(sb)) + tuple(sb)
+    return tuple(y if x == 1 else x for x, y in zip(sa, sb))
+
+
+def _diag_rect(a: torch.Tensor, b: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """Column sums of the product of two limb vectors: a (na, *batch) and
+    b (nb, *batch'), broadcastable batches, int64 ->
+    out[k] = sum_{i+j=k} a[i] * b[j] for k < rows (default na+nb; columns
+    past na+nb-2 are zero) — by strides, no gather.
+
+    The (na, nb) product table is written into a zeroed flat buffer at row
+    pitch rows+1; flat index i*(rows+1) + j equals i*rows + (i+j), so
+    re-reading the buffer at row pitch `rows` lines every anti-diagonal k up
+    in column k, and one sum over the leading axis finishes."""
+    na, nb = a.shape[0], b.shape[0]
+    rows = na + nb if rows is None else rows
+    assert rows >= max(na, nb)
+    rest = _broadcast_rest(a.shape[1:], b.shape[1:])
+    flat = torch.zeros(((na + 1) * rows, *rest), dtype=a.dtype, device=a.device)
+    table = flat[: na * (rows + 1)].view(na, rows + 1, *rest)[:, :nb]
+    torch.mul(a[:, None], b[None, :], out=table)
+    return flat.view(na + 1, rows, *rest).sum(dim=0)
+
+
+class FpOps:
+    """Montgomery field ops for one modulus, vectorised over trailing axes.
+
+    Elements are int32 tensors (L, *batch) in Montgomery form (R = 2^(16 L)).
+    """
+
+    def __init__(self, modulus: int):
+        self.modulus = modulus
+        self.spec = LimbSpec(modulus)
+        L = self.spec.n_limbs
+        self.L = L
+        # host numpy constants, (L, 1)-shaped so they broadcast against
+        # (L, *batch) from the left limb axis
+        self.N = int_to_limbs(modulus, L)[:, None]
+        self.Nprime = int_to_limbs(self.spec.n0_inv, L)[:, None]
+        self.one_mont_np = int_to_limbs(self.spec.mont_r % modulus, L)[:, None]
+        self.r2_np = int_to_limbs(self.spec.mont_r2, L)[:, None]
+        unit = np.zeros((L, 1), np.uint32)
+        unit[0] = 1
+        self.unit_np = unit
+        comp = LIMB_MASK - self.N  # limbs of R - N, unresolved (see _add_complement)
+        comp[0] += 1
+        self.comp_N = comp
+        self._dev_consts: dict = {}
+
+    # -- constants ---------------------------------------------------------
+    def const(self, name: str, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+        """The host constant `name` ((L, 1) numpy attribute) as a tensor on
+        `like`'s device, reshaped to broadcast against `like`."""
+        return self.const_of(name, getattr(self, name), like, dtype)
+
+    def const_of(self, key, arr: np.ndarray, like: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
+        """A caller's (L,)/(L, 1) host limb constant, materialised once per
+        (key, device, dtype) and reshaped to broadcast against `like`."""
+        ck = (key, like.device, dtype)
+        t = self._dev_consts.get(ck)
+        if t is None:
+            t = torch.from_numpy(np.asarray(arr).astype(np.int64)).to(device=like.device, dtype=dtype)
+            self._dev_consts[ck] = t
+        return t.reshape(self.L, *([1] * (like.ndim - 1)))
+
+    def tensor(self, limbs: np.ndarray, device) -> torch.Tensor:
+        """Host limb array (any integer dtype, values < 2^16) -> int32 tensor."""
+        return torch.from_numpy(np.ascontiguousarray(limbs).astype(np.int32)).to(device)
+
+    def zeros(self, shape, device) -> torch.Tensor:
+        return torch.zeros((self.L, *shape), dtype=torch.int32, device=device)
+
+    def ones(self, shape, device) -> torch.Tensor:
+        one = self.tensor(self.one_mont_np[:, 0], device)
+        return one.reshape(self.L, *([1] * len(shape))).expand(self.L, *shape).contiguous()
+
+    # -- host conversion (pure host math — no device round trips) ----------
+    def from_int(self, values) -> np.ndarray:
+        """Host ints (standard form) -> Montgomery limbs (L, n) host numpy
+        uint32. A single int gives shape (L,)."""
+        single = isinstance(values, int)
+        if single:
+            values = [values]
+        R = self.spec.mont_r
+        m = self.modulus
+        arr = ints_to_limbs_batch([(v % m) * R % m for v in values], self.L).T
+        return arr[:, 0] if single else np.ascontiguousarray(arr)
+
+    def to_int(self, limbs) -> list[int]:
+        """Montgomery limbs (L, n) (tensor or numpy) -> host ints."""
+        rinv = pow(self.spec.mont_r, -1, self.modulus)
+        if isinstance(limbs, torch.Tensor):
+            limbs = limbs.cpu().numpy()
+        arr = np.asarray(limbs)
+        if arr.ndim == 1:
+            arr = arr[:, None]
+        flat = arr.reshape(self.L, -1).T
+        return [v * rinv % self.modulus for v in limbs_batch_to_ints(flat)]
+
+    def from_mont(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, self.const("unit_np", a))
+
+    def to_mont_raw(self, a: torch.Tensor) -> torch.Tensor:
+        """Standard-form limbs -> Montgomery form (device)."""
+        return self.mont_mul(a, self.const("r2_np", a))
+
+    # -- core arithmetic ---------------------------------------------------
+    def school_cols(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Full product column sums: (2L, *batch) int64, columns < L * 2^32.
+        One (L, L, *batch) outer product + anti-diagonal sums."""
+        return _diag_rect(a.to(torch.int64), b.to(torch.int64))
+
+    def _cols_bits(self, nprod: int) -> int:
+        return 32 + (self.L * nprod).bit_length()
+
+    def redc_cols(self, cols: torch.Tensor, nprod: int = 1) -> torch.Tensor:
+        """Montgomery-reduce a column-space value V (< nprod * N^2, the sum
+        of `nprod` `school_cols` results) to V * R^{-1} mod N as int32 limbs.
+        Requires nprod * N < R, asserted: then the quotient is < 2N and one
+        conditional subtraction makes it canonical."""
+        assert nprod * self.modulus < self.spec.mont_r_pow, "REDC bound violated"
+        L = self.L
+        bits = self._cols_bits(nprod)
+        # m = (V mod R) * N' mod R, straight from the unresolved low columns
+        # (a product of two L-limb operands truncated to L columns)
+        m_cols = _diag_rect(cols[:L], self.const("Nprime", cols, torch.int64))[:L]
+        m = _resolve_carries(m_cols, bits + SHIFT + L.bit_length())
+        u_cols = _diag_rect(m, self.const("N", cols, torch.int64))
+        # s = V + m*N; its low L limbs are 0 mod R, the result is the high half
+        s = _resolve_carries(cols + u_cols, bits + 1)
+        return self._cond_sub_n(s[L : 2 * L].to(torch.int32))
+
+    def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Montgomery product a*b*R^{-1} mod N."""
+        return self.redc_cols(self.school_cols(a, b))
+
+    def mont_sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return self.mont_mul(a, a)
+
+    mul = mont_mul  # the name the field-ops protocol (ext.py) uses
+
+    def _cond_sub_n(self, a: torch.Tensor) -> torch.Tensor:
+        d, borrow = _add_complement(a, self.const("comp_N", a))
+        return torch.where(borrow, a, d)
+
+    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        s, _ = _ks_carry(a + b)  # limbs <= 0x1FFFE: the lookahead applies directly
+        # note: sum < 2N < R so no top carry is lost
+        return self._cond_sub_n(s)
+
+    def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        a, b = torch.broadcast_tensors(a, b)
+        d, borrow = _sub_with_borrow(a, b)
+        dn, _ = _ks_carry(d + self.const("N", a))
+        return torch.where(borrow, dn, d)
+
+    def neg(self, a: torch.Tensor) -> torch.Tensor:
+        d, _ = _sub_with_borrow(self.const("N", a).expand_as(a), a)
+        return torch.where(self.is_zero(a), a, d)
+
+    def double_el(self, a: torch.Tensor) -> torch.Tensor:
+        return self.add(a, a)
+
+    def mul_small(self, a: torch.Tensor, k: int) -> torch.Tensor:
+        """Multiply by a small constant via repeated additions (k <= ~30)."""
+        assert k >= 0
+        if k == 0:
+            return torch.zeros_like(a)
+        result = None
+        addend = a
+        while k:
+            if k & 1:
+                result = addend if result is None else self.add(result, addend)
+            k >>= 1
+            if k:
+                addend = self.add(addend, addend)
+        return result
+
+    def is_zero(self, a: torch.Tensor) -> torch.Tensor:
+        """All-limbs-zero mask over the batch shape (*batch,)."""
+        return (a == 0).all(dim=0)
+
+    def eq(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return (a == b).all(dim=0)
+
+    def select(self, cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """cond is a boolean tensor over the batch shape (broadcasts from
+        the right against (L, *batch))."""
+        return torch.where(cond, a, b)
+
+    # -- exponentiation / inversion ---------------------------------------
+    def pow_const(self, a: torch.Tensor, e: int) -> torch.Tensor:
+        """a^e for a host-known exponent: square-and-multiply over its bits.
+        The exponent is public, so zero bits skip the multiply."""
+        if e == 0:
+            return self.const("one_mont_np", a).expand_as(a).contiguous()
+        acc = a
+        for bit in bin(e)[3:]:
+            acc = self.mont_sqr(acc)
+            if bit == "1":
+                acc = self.mont_mul(acc, a)
+        return acc
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Fermat inversion a^(p-2); a==0 maps to 0."""
+        return self.pow_const(a, self.modulus - 2)
+
+    def batch_inv(self, a: torch.Tensor) -> torch.Tensor:
+        """Batched inversion over the last axis with a single Fermat
+        inversion (Montgomery's trick as a product tree: pairwise products
+        up to one root, one inversion, then inverses pushed back down by
+        multiplying with the sibling). ~3 multiplications per element in
+        2*log2(n) full-width steps. Zero elements pass through as zero
+        (matching the projective normalisation use where Z=0 marks
+        infinity). The inverses are canonical, so they equal the
+        reference's prefix/suffix-scan result limb for limb."""
+        return _tree_batch_inv(self, a)
+
+
+def _tree_batch_inv(F, a: torch.Tensor) -> torch.Tensor:
+    """Product-tree batch inversion over the last axis for any ops object
+    with is_zero/select/ones/mul/inv (see FpOps.batch_inv)."""
+    n = a.shape[-1]
+    is_zero = F.is_zero(a)
+    one = F.ones((1,), device=a.device)
+    level = F.select(is_zero, one.expand_as(a), a)
+    levels = []
+    while level.shape[-1] > 1:
+        if level.shape[-1] % 2:
+            level = torch.cat([level, one.expand(*level.shape[:-1], 1)], dim=-1)
+        levels.append(level)
+        level = F.mul(level[..., 0::2], level[..., 1::2])
+    inv = F.inv(level)
+    for level in reversed(levels):
+        # inverse of a child = inverse of the parent times the sibling
+        # (a parent level padded to even width carries one inverse too many)
+        sib = torch.stack([level[..., 1::2], level[..., 0::2]], dim=-1)
+        inv = F.mul(inv[..., : sib.shape[-2]].unsqueeze(-1), sib).reshape(level.shape)
+    return F.select(is_zero, torch.zeros_like(a), inv[..., :n])
+
+
+@functools.lru_cache(maxsize=None)
+def fp_ops(modulus: int) -> FpOps:
+    return FpOps(modulus)

@@ -1,0 +1,195 @@
+"""The port's host-exact copies and re-derived constants equal the JAX
+package's, and the port imports neither JAX nor the JAX package.
+
+Exact equality throughout (integers and bytes; tolerance 0)."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+
+import snark_setup_tpu.curves.constants as jconst
+import snark_setup_tpu.fields.limb as jlimb
+import snark_setup_tpu.phase1.keys as jkeys
+import snark_setup_tpu.phase1.parameters as jparams
+import snark_setup_tpu.serialize.arkworks as jark
+import snark_setup_tpu.transcript.hashing as jhash
+import snark_setup_tpu.utils.enums as jenums
+import snark_setup_tpu_torch.curves.constants as tconst
+import snark_setup_tpu_torch.fields.limb as tlimb
+import snark_setup_tpu_torch.phase1.keys as tkeys
+import snark_setup_tpu_torch.phase1.parameters as tparams
+import snark_setup_tpu_torch.serialize.arkworks as tark
+import snark_setup_tpu_torch.transcript.hashing as thash
+import snark_setup_tpu_torch.utils.enums as tenums
+
+CURVES = ["bw6_761", "bls12_377"]
+GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_limb_arrays_equal(curve):
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    rng = np.random.default_rng(1)
+    for m in (js.q, js.r):
+        a, b = jlimb.LimbSpec(m), tlimb.LimbSpec(m)
+        assert (a.n_limbs, a.mont_r, a.mont_r2, a.n0_inv) == (b.n_limbs, b.mont_r, b.mont_r2, b.n0_inv)
+        vals = [0, 1, m - 1] + [int.from_bytes(rng.bytes(120), "little") % m for _ in range(5)]
+        ja, ta = jlimb.ints_to_limbs_batch(vals, a.n_limbs), tlimb.ints_to_limbs_batch(vals, b.n_limbs)
+        assert ja.dtype == ta.dtype and (ja == ta).all()
+        assert tlimb.limbs_batch_to_ints(ta) == vals
+        assert (jlimb.int_to_limbs(m, a.n_limbs) == tlimb.int_to_limbs(m, b.n_limbs)).all()
+    assert (ts.q, ts.r) == (js.q, js.r)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_curve_constants_equal(curve):
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    assert ts.name == js.name and ts.fp_bytes == js.fp_bytes
+    for g in ("g1", "g2"):
+        jg, tg = getattr(js, g), getattr(ts, g)
+        assert (tg.field_kind, tuple(tg.a), tuple(tg.b)) == (jg.field_kind, tuple(jg.a), tuple(jg.b))
+        assert tg.cofactor == jg.cofactor
+    from snark_setup_tpu.curves.host import g1_curve as jg1, g2_curve as jg2
+    from snark_setup_tpu_torch.curves.host import g1_curve as tg1, g2_curve as tg2
+
+    for jc, tc in ((jg1(js), tg1(ts)), (jg2(js), tg2(ts))):
+        jp, tp = jc.mul(jc.generator, 0xABCDEF12345), tc.mul(tc.generator, 0xABCDEF12345)
+        assert repr(tp.x) == repr(jp.x) and repr(tp.y) == repr(jp.y)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("compressed", ["YES", "NO"])
+def test_arkworks_codec_bytes_equal(curve, compressed):
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    jc, tc = jenums.UseCompression[compressed], tenums.UseCompression[compressed]
+    from snark_setup_tpu.curves.host import INFINITY as JINF
+    from snark_setup_tpu_torch.curves.host import INFINITY as TINF
+
+    for jcodec, tcodec in ((jark.g1_codec(js), tark.g1_codec(ts)), (jark.g2_codec(js), tark.g2_codec(ts))):
+        for k in (1, 2, 0x1234567):
+            jb = jcodec.serialize(jcodec.curve.mul(jcodec.curve.generator, k), jc)
+            tb = tcodec.serialize(tcodec.curve.mul(tcodec.curve.generator, k), tc)
+            assert jb == tb
+            back = tcodec.deserialize(tb, tc, tenums.CheckForCorrectness.FULL)
+            assert back == tcodec.curve.mul(tcodec.curve.generator, k)
+        assert jcodec.serialize(JINF, jc) == tcodec.serialize(TINF, tc)
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_key_generation_and_parameter_sizes_equal(curve):
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    digest = bytes(range(64))
+    jpk, jsk = jkeys.key_generation(js, jhash.derive_rng_from_seed(b"\x05" * 32), digest)
+    tpk, tsk = tkeys.key_generation(ts, thash.derive_rng_from_seed(b"\x05" * 32), digest)
+    assert (tsk.tau, tsk.alpha, tsk.beta) == (jsk.tau, jsk.alpha, jsk.beta)
+    assert tpk.serialize(ts) == jpk.serialize(js)
+    for system in ("GROTH16", "MARLIN"):
+        jp = jparams.Phase1Parameters.new_full(curve, jenums.ProvingSystem[system], 5, 8)
+        tp = tparams.Phase1Parameters.new_full(curve, tenums.ProvingSystem[system], 5, 8)
+        for attr in ("accumulator_size", "contribution_size", "public_key_size", "powers_length",
+                     "powers_g1_length", "hash_size"):
+            assert getattr(tp, attr) == getattr(jp, attr), attr
+        for c in ("YES", "NO"):
+            assert tp.get_length(tenums.UseCompression[c]) == jp.get_length(jenums.UseCompression[c])
+
+
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_rederived_device_constants_equal(curve, group):
+    """N, N', R mod N, 3b, beta, and the GLV geometry and limb constants."""
+    from snark_setup_tpu.ops.curve_jax import curve_ops as jops_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops as tops_for
+
+    jops, tops = jops_for(curve, group), tops_for(curve, group)
+    for jf, tf in ((jops.fq, tops.fq), (jops.fr, tops.fr)):
+        assert tf.L == jf.L
+        for name in ("N", "Nprime", "one_mont_np"):
+            assert (np.asarray(getattr(tf, name)) == np.asarray(getattr(jf, name))).all(), name
+    assert (tops.b3_np.reshape(-1) == np.asarray(jops.b3_dev).reshape(-1)).all()
+    assert (tops.beta_np.reshape(-1) == np.asarray(jops._glv_beta).reshape(-1)).all()
+    assert tops._b3_small == jops._b3_small
+    jg, tg = jops.glv, tops.glv
+    assert (tg.p.beta, tg.p.lam, tg.p.v1, tg.p.v2, tg.p.nbits) == (jg.p.beta, jg.p.lam, jg.p.v1, jg.p.v2, jg.p.nbits)
+    assert (tg.Lc, tg.LT, tg.Lh, tg.S_limbs, tg.half_limb, tg.mu_sign) == (
+        jg.Lc, jg.LT, jg.Lh, jg.S_limbs, jg.half_limb, jg.mu_sign)
+    for a, b in zip(tg.mu, jg.mu):
+        assert (a == b).all()
+    for tt, jt in zip((*tg.k1_terms, *tg.k2_terms), (*jg.k1_terms, *jg.k2_terms)):
+        assert (tt is None) == (jt is None)
+        if tt is not None:
+            assert tt[0] == jt[0] and (tt[1] == jt[1]).all()
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "snark_setup_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    pat = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+snark_setup_tpu\b(?!_)|from\s+snark_setup_tpu\b(?!_))",
+        re.M,
+    )
+    files = _port_sources()
+    assert len(files) > 30
+    hits = [f for f in files if pat.search(open(f).read())]
+    assert not hits, hits
+
+
+def test_port_has_no_torch_compile():
+    assert not [f for f in _port_sources() if "torch.compile" in open(f).read()
+                and not f.endswith("chip_smoke.py")]
+
+
+def test_entry_points_raise_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device resolves")
+    from snark_setup_tpu_torch.cli import phase1_main
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+    from snark_setup_tpu_torch.phase1.protocol import Phase1
+    from snark_setup_tpu_torch.shard import runtime
+    from snark_setup_tpu_torch.utils.device import resolve_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_codec("bw6_761", "g1")
+    from snark_setup_tpu_torch.ops import convert
+
+    # the seam constructors default to the card as well
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.planes_from_reference(np.zeros((16, 2), np.uint32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.pointvec_from_reference({k: np.zeros((24, 2), np.uint32) for k in "xyz"})
+    ops = curve_ops("bls12_377", "g1")
+    # constructors of tensors take the device as a required argument
+    for ctor in (ops.infinity, ops.fq.zeros, ops.fq.ones, ops.field.zeros, ops.field.ones):
+        with pytest.raises(TypeError):
+            ctor((2,))
+    pts = ops.infinity((2,), "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.scalar_mul(ops, pts, torch.zeros((ops.fr.L, 2), dtype=torch.int32))
+    tp = tparams.Phase1Parameters.new_full("bw6_761", tenums.ProvingSystem.GROTH16, 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Phase1.computation(b"", bytearray(), tenums.UseCompression.NO, tenums.UseCompression.YES,
+                           tenums.CheckForCorrectness.NO, tenums.BatchExpMode.AUTO, None, tp)
+    assert phase1_main.build_parser().parse_args(["new"]).device == "cuda"
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_unported_groups_and_commands_raise_not_implemented():
+    from snark_setup_tpu_torch.cli import phase1_main
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        curve_ops("bls12_377", "g2")
+    args = phase1_main.build_parser().parse_args(["--device", "cpu", "combine"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        phase1_main.execute(args)

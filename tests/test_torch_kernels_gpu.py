@@ -1,0 +1,61 @@
+"""The two CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc: they are marked `gpu`, decide inside
+the test whether a card is present, and skip without one. Run them on the
+machine with the card:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
+
+(`chip_smoke.py` makes the same comparison at the main path's shapes.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from snark_setup_tpu_torch.curves.host import INFINITY
+from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
+from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for, glv_digits_plain
+from snark_setup_tpu_torch.ops.cuda_ladder import fused_ladder_for, glv_ladder_plain
+from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
+
+GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_kernels_equal_plain_versions_on_the_card(curve, group):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    hc, r = ops.host_curve, ops.spec.r
+    rng = np.random.default_rng(5)
+    B = 257  # not a multiple of the block
+    ks = [0, 1, r - 1] + [int.from_bytes(rng.bytes(64), "little") % r for _ in range(B - 3)]
+    scalars = ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev)
+    base = [hc.mul(hc.generator, 3 + i) for i in range(8)]
+    base[5] = INFINITY
+    p8 = ops.double(ops.from_affine_host(base, dev))
+    idx = torch.arange(B, device=dev) % 8
+    pts = PointVec({k: v[:, idx].contiguous() for k, v in p8.items()})
+
+    dig, lad = glv_digits_for(curve, group), fused_ladder_for(curve, group)
+    n_dig, n_lad = dig.launches, lad.launches
+    got_d = dig(scalars)
+    got_p = lad(pts, *got_d)
+    torch.cuda.synchronize()
+    assert (dig.launches, lad.launches) == (n_dig + 1, n_lad + 1)
+    with torch.no_grad():
+        want_d = glv_digits_plain(ops, scalars)
+        want_p = glv_ladder_plain(ops, pts, *want_d)
+    for a, b in zip(got_d, want_d):
+        assert torch.equal(a, b)
+    for k in "xyz":
+        assert torch.equal(got_p[k], want_p[k]), k
+    lanes = [0, 1, 2, 5, B - 1]
+    aff = ops.to_affine_host(PointVec({k: v[:, lanes].contiguous() for k, v in got_p.items()}))
+    for lane, pt in zip(lanes, aff):
+        src = base[lane % 8]
+        want = INFINITY if src.is_infinity else hc.mul(hc.double(src), ks[lane])
+        assert pt == want, lane
