@@ -7,10 +7,14 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
 It builds the port's CUDA kernels from the sources in this checkout, holds
 each kernel against its plain PyTorch version on the card (exact equality —
-this is modular arithmetic, tolerance 0), drives the port's main path
-(`phase1 new` + `phase1 contribute` on BW6-761 through the port's CLI entry
-point, plus the batch scalar-mul on BLS12-377 G1 and BW6-761 G1) and checks
-the results against the host oracle (Python-int curve arithmetic).
+this is modular arithmetic, tolerance 0), drives the port's main paths
+through the port's CLI entry point — `phase1 new` + `phase1 contribute` on
+BW6-761 (plus the batch scalar-mul on BLS12-377 G1 and BW6-761 G1), on
+BLS12-377 (the CLI's default curve), on MNT4-753 and on MNT6-753 — and checks
+the results against the host oracle (Python-int curve arithmetic). Each path
+runs with every kernel's launch count set to 0 just before it and read just
+after; every kernel must have launched on its path, and no plain version may
+have run there.
 
 Each phase prints one JSON line. Near the end it prints one
 `{"kernels": [...]}` line with, per kernel and configuration: the launches
@@ -25,12 +29,15 @@ larger of
     integer multiply-adds per clock per SM against 128 fp32 ones, so half of
     it. A 32x32->64-bit multiply-add is counted as one such instruction: if
     the card runs it at a lower rate the true bound is higher, never lower.
-There is no single PyTorch call that computes either function, so
-`library_ms` is null. The last line is
+There is no single PyTorch call that computes any of these functions (a
+batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 With `--sweep` it also times the ladder kernel at batch 2^12 .. 2^17 (how far
 one thread per lane fills the card at the batch sizes a ceremony uses).
+`--power` sets the size of the BW6-761 and BLS12-377 contribute phases
+(default 16); the MNT phases run at MNT_POWER (14), one full batch per G2
+section.
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -52,7 +59,24 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
+MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
+RAGGED = 4097  # a batch that is no multiple of the kernels' block size
 CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))
+DIGITS_ONLY = (("bls12_377", "g2"),)  # K3 feeds the ladder over the group law there
+# the stacked-product kernel K5 at the main paths' shapes: (curve, group whose
+# coordinate field it multiplies in, round, curve-level weights)
+A_NONZERO_ROUND1 = ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 1, 0), (0, 0, 0, 0, 0, 1))
+PAIRS = ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1))
+ID6 = tuple(tuple(int(i == j) for j in range(6)) for i in range(6))
+STACKED = (
+    ("bls12_377", "g2", "Fp2 add round 0", ID6),
+    ("bls12_377", "g1", "Fq planes x beta (G2 endomorphism table, S=G=32)",
+     tuple(tuple(int(i == j) for j in range(32)) for i in range(32))),
+    ("mnt4_753", "g1", "Fq add round 1, a != 0", A_NONZERO_ROUND1),
+    ("mnt4_753", "g2", "Fp2 add round 1, a != 0 (largest weights: 3 x 14)", A_NONZERO_ROUND1),
+    ("mnt6_753", "g2", "Fp3 add round 0", ID6),
+    ("mnt6_753", "g2", "Fp3 add round 2 (pairwise merge)", PAIRS),
+)
 SECTIONS = (
     ("tau_g1", "g1", None),
     ("tau_g2", "g2", None),
@@ -121,7 +145,7 @@ def make_inputs(ops, B: int, rng, dev, edge: bool, projective: bool):
         p16 = ops.double(p16)
         affine16 = [p if p.is_infinity else hc.double(p) for p in affine16]
     idx = torch.arange(B, device=dev) % 16
-    pts = PointVec({k: v[:, idx].contiguous() for k, v in p16.items()})
+    pts = PointVec({k: v[..., idx].contiguous() for k, v in p16.items()})
     return pts, scalars, ks, [affine16[i % 16] for i in range(B)]
 
 
@@ -129,11 +153,14 @@ def kernel_work(ops, dig, lad, B: int) -> dict:
     """Bytes and integer multiply-adds of one launch of each kernel at
     batch B, from the shapes alone."""
     g = ops.glv
-    L, NL, Ls, nwin = lad.L, lad.NL, dig.Ls, dig.nwin
+    Ls, nwin = dig.Ls, dig.nwin
     # digits: k x mu products and c x coeff products on 16-bit limbs
     terms = [t for t in (*g.k1_terms, *g.k2_terms) if t is not None]
     dig_ops = B * (sum(Ls * len(m) for m in g.mu) + sum(g.Lc * len(t[1]) for t in terms))
     dig_bytes = 4 * B * (Ls + 2 * nwin + 2)
+    if lad is None:
+        return {"glv_digits": (dig_bytes, dig_ops)}
+    L, NL = lad.L, lad.NL
     # ladder: 32x32->64 multiply-adds, one operation each:
     #   product = 2 NL^2 (product + reduction), shared-reduction pair = 3 NL^2
     #   gdbl = 8 products, gadd = 6 products + 3 pairs
@@ -167,7 +194,7 @@ def compare_kernels(dev, batch: int) -> list[dict]:
         rng = np.random.default_rng(SEED + ci)
         errs = {"glv_digits": 0, "glv_ladder": 0}
         times = {}
-        for B, edge in ((4097, True), (batch, False)):
+        for B, edge in ((RAGGED, True), (batch, False)):
             pts, scalars, _, _ = make_inputs(ops, B, rng, dev, edge=edge, projective=edge)
             got_d = dig(scalars)
             torch.cuda.synchronize()
@@ -205,10 +232,123 @@ def compare_kernels(dev, batch: int) -> list[dict]:
                 "replaces": replaces, "launches": 0, "max_abs_err": errs[name],
                 "ms": times[key], "plain_ms": times[key + "_plain"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None, "batch": batch, "_wrapper": wrapper,
+                "_path": "bw6_761", "_label": f"{name}[{curve}/{group}]",
             })
         emit({"phase": "kernels", "config": f"{curve}/{group}", "batch": batch,
-              "ragged_batch": 4097, "equal": True,
+              "ragged_batch": RAGGED, "equal": True,
               "ms": {k: times[k] for k in ("digits", "digits_plain", "ladder", "ladder_plain")}})
+    for ci, (curve, group) in enumerate(DIGITS_ONLY):
+        ops = curve_ops(curve, group)
+        dig = glv_digits_for(curve, group)
+        rng = np.random.default_rng(SEED + 50 + ci)
+        err = 0
+        for B, edge in ((RAGGED, True), (batch, False)):
+            _, scalars, _, _ = make_inputs(ops, B, rng, dev, edge=edge, projective=False)
+            got_d = dig(scalars)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want_d = glv_digits_plain(ops, scalars)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, *(max_abs_diff(a, b) for a, b in zip(got_d, want_d)))
+            if err:
+                raise AssertionError(f"{curve} {group} B={B}: digits kernel differs from plain version")
+        ms = event_ms(lambda: dig(scalars), 20)
+        b_ms, b_by = bound(*kernel_work(ops, dig, None, batch)["glv_digits"])
+        rows.append({
+            "name": f"glv_digits[{curve}/{group}]", "route": "cuda",
+            "source": "snark_setup_tpu_torch/ops/csrc/glv_digits.cu",
+            "replaces": "snark_setup_tpu/ops/pallas_glv.py:215", "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "batch": batch, "_wrapper": dig, "_path": curve, "_label": f"glv_digits[{curve}/{group}]",
+        })
+        emit({"phase": "kernels", "config": f"{curve}/{group}", "batch": batch, "ragged_batch": RAGGED,
+              "equal": True, "ms": {"digits": ms, "digits_plain": plain_ms}})
+    return rows
+
+
+def stacked_inputs(fq, S: int, B: int, rng, dev):
+    """(L, S, B) int32 planes of values < N; lanes 0, 1, 2 hold 0, 1, N-1
+    (the edge values) in every row."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.fields.limb import int_to_limbs
+
+    L = fq.L
+    a = rng.integers(0, 1 << 16, size=(L, S, B), dtype=np.int64)
+    top = int(fq.N[L - 1, 0])
+    a[L - 1] = rng.integers(0, top, size=(S, B))  # top limb below N's: value < N
+    for lane, v in enumerate((0, 1, fq.modulus - 1)):
+        if lane < B:
+            a[:, :, lane] = int_to_limbs(v, L).astype(np.int64)[:, None]
+    return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+
+def stacked_work(fq, weights, SU: int, SV: int, B: int) -> tuple[int, int]:
+    """Bytes (inputs read once, output written once) and 32x32->64-bit
+    multiply-adds of one K5 launch: per lane and non-zero weight a weighted
+    operand (NL) and a product (NL (NL + 1)), per output one reduction (NL^2)."""
+    NL = fq.L // 2
+    nz = sum(1 for g in weights for w in g if w)
+    nbytes = 4 * fq.L * B * (SU + SV + len(weights))
+    return nbytes, B * (nz * (NL * (NL + 1) + NL) + len(weights) * NL * NL)
+
+
+def compare_stacked_mul(dev, batch: int) -> list[dict]:
+    """K5 against its plain version at the main paths' shapes: a ragged
+    batch with edge values, then the main path's batch with timings."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for, stacked_mul_plain
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    rows = []
+    for ci, (curve, group, label, weights) in enumerate(STACKED):
+        F = curve_ops(curve, group).field
+        fq = F.fp
+        K = stacked_mul_for(fq.modulus)
+        S = len(weights[0])
+        if F.degree == 1:
+            comp, maps = weights, (tuple(range(S)), tuple(range(S)), (0,) * S)
+        else:
+            comp, maps = F._flattened(weights, S)
+        SU = F.degree * S
+        rng = np.random.default_rng(SEED + 500 + ci)
+        # lanes per chunk of the plain version: its product table is
+        # (L+1) 2L int64 words per stacked row and lane
+        chunk = max(256, int(4e9 // ((fq.L + 1) * 2 * fq.L * len(comp[0]) * 8)))
+        err = 0
+        for B in (RAGGED, batch):
+            U, V = stacked_inputs(fq, SU, B, rng, dev), stacked_inputs(fq, SU, B, rng, dev)
+            got = K(U, V, comp, maps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = torch.cat([
+                stacked_mul_plain(fq, *K.gather(U[..., lo:lo + chunk], V[..., lo:lo + chunk], maps), comp)
+                for lo in range(0, B, chunk)
+            ], dim=-1)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, max_abs_diff(got, want))
+            if err:
+                raise AssertionError(f"stacked_mul {curve} {label} B={B}: kernel differs from plain version")
+        ms = event_ms(lambda: K(U, V, comp, maps), 20)
+        b_ms, b_by = bound(*stacked_work(fq, comp, SU, SU, batch))
+        rows.append({
+            "name": f"stacked_mul[{curve} {label}]", "route": "cuda",
+            "source": "snark_setup_tpu_torch/ops/csrc/stacked_mul.cu",
+            "replaces": "snark_setup_tpu/ops/pallas_field.py:498", "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "batch": batch, "shape": {"S": len(comp[0]), "G": len(comp), "SU": SU,
+                                      "max_weight_sum": max(sum(g) for g in comp)},
+            "_wrapper": K, "_path": curve, "_label": f"stacked_mul[{curve}]",
+        })
+        emit({"phase": "kernels", "config": f"stacked_mul {curve} {label}", "batch": batch,
+              "ragged_batch": RAGGED, "edge_values": [0, 1, "N-1"], "equal": True,
+              "ms": {"kernel": ms, "plain": plain_ms},
+              "plain_chunk_lanes": chunk})
     return rows
 
 
@@ -241,9 +381,11 @@ def scalar_mul_phase(dev, batch: int) -> None:
               "seconds": secs, "exp_per_s": batch / secs, "oracle_lanes": lanes, "oracle_ok": True})
 
 
-def check_response(params, key, challenge: bytes, response: bytes, rng, label: str) -> int:
-    """Host-oracle check of a response: the hash chain, and for 8 sampled
-    indices per section response[i] == input[i] * (tau^i * coeff)."""
+def check_response(params, key, challenge: bytes, response: bytes, rng, label: str,
+                   picks: int = 6) -> int:
+    """Host-oracle check of a response: the hash chain, and for the first,
+    the last and `picks` random indices per section
+    response[i] == input[i] * (tau^i * coeff)."""
     from snark_setup_tpu_torch.curves.host import g1_curve, g2_curve
     from snark_setup_tpu_torch.phase1.buffers import split
     from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
@@ -258,9 +400,9 @@ def check_response(params, key, challenge: bytes, response: bytes, rng, label: s
     for name, group, coeff_name in SECTIONS:
         codec, curve = codecs[group]
         n = sec_in[name].num_elements
-        picks = sorted({0, n - 1, *(int(i) for i in rng.integers(0, n, 6))})
+        idx = sorted({0, n - 1, *(int(i) for i in rng.integers(0, n, picks))})
         coeff = getattr(key, coeff_name) if coeff_name else 1
-        for i in picks:
+        for i in idx:
             p_in = codec.deserialize(bytes(sec_in[name].slice_of(challenge, i, i + 1)),
                                      UseCompression.NO, CheckForCorrectness.NO)
             p_out = codec.deserialize(bytes(sec_out[name].slice_of(response, i, i + 1)),
@@ -278,9 +420,12 @@ def check_response(params, key, challenge: bytes, response: bytes, rng, label: s
     return checked + 1
 
 
-def contribute_phase(dev, power: int, batch: int, wrappers) -> None:
-    """Phase 5: `new` + `contribute` through the port's CLI on BW6-761, then
-    a second `contribute` on a non-trivial accumulator."""
+def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
+                     contributions: int = 1, picks: int = 6) -> None:
+    """`new` + `contribute` through the port's CLI on `curve`, checked
+    against the host oracle; with `contributions=2` a second `contribute` on a
+    non-trivial accumulator. `wrappers` maps a label to each kernel wrapper
+    whose time inside the contribution is summed from CUDA events."""
     import numpy as np
     import torch
 
@@ -293,12 +438,12 @@ def contribute_phase(dev, power: int, batch: int, wrappers) -> None:
         BatchExpMode, CheckForCorrectness, ProvingSystem, UseCompression,
     )
 
-    common = ["--curve-kind", "bw6_761", "--proving-system", "groth16", "--contribution-mode",
+    common = ["--curve-kind", curve, "--proving-system", "groth16", "--contribution-mode",
               "full", "--power", str(power), "--batch-size", str(batch), "--device", dev.type]
-    params = Phase1Parameters.new_full("bw6_761", ProvingSystem.GROTH16, power, batch)
+    params = Phase1Parameters.new_full(curve, ProvingSystem.GROTH16, power, batch)
     rng = np.random.default_rng(SEED + 200)
     n_points = sum(s.num_elements for s in split(params, UseCompression.NO).values())
-    for w in wrappers:
+    for w in wrappers.values():
         w.events = []
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -324,7 +469,7 @@ def contribute_phase(dev, power: int, batch: int, wrappers) -> None:
         t_new = cli(*common, "new", "--challenge-fname", path("challenge1"),
                     "--challenge-hash-fname", path("challenge1.hash"))
         runs = []
-        for tag, chal in (("1", "challenge1"), ("2", "challenge2")):
+        for tag, chal in (("1", "challenge1"), ("2", "challenge2"))[:contributions]:
             if tag == "2":
                 # a non-trivial accumulator: apply another key to challenge1,
                 # uncompressed, through the protocol layer
@@ -340,31 +485,32 @@ def contribute_phase(dev, power: int, batch: int, wrappers) -> None:
                 acc[:64] = calculate_hash(read("response1"))
                 with open(path("challenge2"), "wb") as f:
                     f.write(acc)
-                emit({"phase": "contribute", "step": "uncompressed accumulator via Phase1.computation",
-                      "seconds": t_mid})
-            n_events = [len(w.events) for w in wrappers]
+                emit({"phase": "contribute", "curve": curve,
+                      "step": "uncompressed accumulator via Phase1.computation", "seconds": t_mid})
+            n_events = {k: len(w.events) for k, w in wrappers.items()}
             secs = cli(*common, "--seed", path(f"seed{tag}"), "contribute",
                        "--challenge-fname", path(chal), "--challenge-hash-fname", path(chal + ".hash"),
                        "--response-fname", path(f"response{tag}"),
                        "--response-hash-fname", path(f"response{tag}.hash"))
             kernel_ms = {
-                type(w).__name__ + "[" + w.ops.group_name + "]":
-                    sum(s.elapsed_time(e) for s, e in w.events[n0:])
-                for w, n0 in zip(wrappers, n_events)
+                k: sum(s.elapsed_time(e) for s, e in w.events[n_events[k]:]) for k, w in wrappers.items()
             }
             challenge, response = read(chal), read(f"response{tag}")
             _, key = Phase1.key_generation(
                 params.spec, derive_rng_from_seed(seeds[tag]), calculate_hash(challenge))
-            checked = check_response(params, key, challenge, response, rng, f"contribute {tag}")
+            t0 = time.perf_counter()
+            checked = check_response(params, key, challenge, response, rng,
+                                     f"{curve} contribute {tag}", picks)
+            t_oracle = time.perf_counter() - t0
             runs.append(secs)
-            emit({"phase": "contribute", "step": f"contribute {tag}", "curve": "bw6_761",
+            emit({"phase": "contribute", "step": f"contribute {tag}", "curve": curve,
                   "proving_system": "groth16", "mode": "full", "power": power, "batch_size": batch,
                   "points": n_points, "challenge_bytes": len(challenge), "wall_seconds": secs,
                   "points_per_s": n_points / secs, "kernel_ms": kernel_ms,
                   "kernel_seconds_total": sum(kernel_ms.values()) / 1e3,
-                  "oracle_points_checked": checked, "hash_chain_ok": True})
-        emit({"phase": "contribute", "step": "new", "seconds": t_new})
-    for w in wrappers:
+                  "oracle_points_checked": checked, "oracle_seconds": t_oracle, "hash_chain_ok": True})
+        emit({"phase": "contribute", "curve": curve, "step": "new", "seconds": t_new})
+    for w in wrappers.values():
         w.events = None
 
 
@@ -426,6 +572,78 @@ def breakdown_phase(dev, batch: int) -> None:
           "mont_muls_per_inversion": bin(ops.spec.q - 2).count("1") + (ops.spec.q - 2).bit_length() - 2})
 
 
+def g2_breakdown_phase(dev, batch: int) -> None:
+    """One batch of the contribute loop on BLS12-377 G2 (Fp2 coordinates),
+    stage by stage, each ended with a synchronize; the window loop's time is
+    split into the stacked-product kernel's (CUDA events) and the eager
+    PyTorch glue around it."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
+    from snark_setup_tpu_torch.phase1.protocol import _tau_powers_raw
+    from snark_setup_tpu_torch.utils.enums import UseCompression
+
+    codec = batch_codec("bls12_377", "g2", dev)
+    ops, F = codec.ops, codec.F
+    K = stacked_mul_for(ops.spec.q)
+    rng = np.random.default_rng(SEED + 310)
+    pts, _, _, _ = make_inputs(ops, batch, rng, dev, edge=False, projective=False)
+    data = codec.write_batch(pts, UseCompression.NO, normalized=True)
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    p = timed("read_batch (host parse + to Montgomery)", lambda: codec.read_batch(data, UseCompression.NO))
+    raw = timed("tau powers (plain torch)",
+                lambda: _tau_powers_raw(ops.fr, 0x1234567 << 200, batch, 2 * batch, None, dev))
+    d1, d2, neg1, flip = timed("K3 glv_digits", lambda: glv_digits_for("bls12_377", "g2")(raw))
+    neg1, flip = neg1.bool(), flip.bool()
+
+    def tables():
+        t1 = ops._window_table(ops.select(neg1, ops.neg(p), p))
+        t2 = {"x": ops._fq_mul_planes(t1["x"], ops.beta_np, ("beta_np", "bls12_377", "g2")),
+              "y": F.select(flip, F.neg(t1["y"]), t1["y"]), "z": t1["z"]}
+        return t1, t2
+
+    n0 = K.launches
+    t1, t2 = timed("table build: 1 doubling + 13 additions + beta planes (K5 + glue)", tables)
+    table_launches = K.launches - n0
+
+    def loop():
+        acc = ops.infinity((batch,), dev)
+        for k in range(d1.shape[0]):
+            acc = ops._window_doubles(acc, ops.WINDOW)
+            acc = ops.add(acc, ops._select_entry(t1, d1[k]))
+            acc = ops.add(acc, ops._select_entry(t2, d2[k]))
+        return acc
+
+    K.events, n0 = [], K.launches
+    prod = timed("window loop: 4 doublings + 2 additions per window (K5 + glue)", loop)
+    loop_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
+    loop_launches = K.launches - n0
+    K.events = []
+    timed("normalize: inversion tree (K5 products) + Fermat inversion (plain torch)", lambda: ops.normalize(prod))
+    norm_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
+    K.events = None
+    h = timed("write_batch_start: normalize + from_mont + sign flags + device->host copy",
+              lambda: codec.write_batch_start(prod))
+    timed("write_batch_finish: host byte packing", lambda: codec.write_batch_finish(h, UseCompression.YES))
+    loop_s = stages["window loop: 4 doublings + 2 additions per window (K5 + glue)"]
+    emit({"phase": "breakdown", "config": "bls12_377/g2", "batch": batch, "seconds": stages,
+          "windows": int(d1.shape[0]), "k5_launches": {"table": table_launches, "window_loop": loop_launches},
+          "window_loop_split": {"k5_seconds": loop_k5, "glue_seconds": loop_s - loop_k5},
+          "normalize_k5_seconds": norm_k5})
+
+
 def sweep_phase(dev) -> None:
     """Optional: the ladder kernel at batch 2^12 .. 2^17, lanes per second."""
     import numpy as np
@@ -450,7 +668,7 @@ def sweep_phase(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--power", type=int, default=16,
-                    help="log2 size of the contribute phase (>= 14)")
+                    help="log2 size of the BW6-761 and BLS12-377 contribute phases (>= 14)")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the ladder kernel at batch 2^12 .. 2^17")
     args = ap.parse_args()
@@ -480,23 +698,49 @@ def main() -> int:
                     for t, log in build.build_logs.items()}})
 
     with torch.no_grad():
-        rows = compare_kernels(dev, BATCH)
-        wrappers = [r["_wrapper"] for r in rows]
-        # the main path: counts to 0 just before, read just after
-        for w in wrappers:
-            w.launches = 0
-            w.plain_calls = 0
-        scalar_mul_phase(dev, BATCH)
-        contribute_phase(dev, args.power, BATCH,
-                         [w for w in wrappers if w.ops.spec.name == "bw6"])
+        rows = compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH)
+        emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
+        wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
+
+        def labelled(curve):
+            """The wrappers whose kernels a contribution on `curve` launches."""
+            return {r["_label"]: r["_wrapper"] for r in rows if curve in r["_label"]}
+
+        # the main paths: every count to 0 just before each, read just after
+        paths = (
+            ("bw6_761", lambda: (scalar_mul_phase(dev, BATCH),
+                                 contribute_phase(dev, "bw6_761", args.power, BATCH, labelled("bw6_761"),
+                                                  contributions=2))),
+            ("bls12_377", lambda: contribute_phase(dev, "bls12_377", args.power, BATCH,
+                                                   labelled("bls12_377"))),
+            ("mnt4_753", lambda: contribute_phase(dev, "mnt4_753", MNT_POWER, BATCH,
+                                                  labelled("mnt4_753"), picks=2)),
+            ("mnt6_753", lambda: contribute_phase(dev, "mnt6_753", MNT_POWER, BATCH,
+                                                  labelled("mnt6_753"), picks=2)),
+        )
+        for curve, run in paths:
+            for w in wrappers:
+                w.launches = 0
+                w.plain_calls = 0
+            t0 = time.perf_counter()
+            run()
+            for w in wrappers:
+                if w.plain_calls != 0:
+                    raise AssertionError(f"a plain version ran on the {curve} path")
+            for r in rows:
+                if r["_path"] == curve:
+                    r["launches"] = r["_wrapper"].launches
+                    r["plain_calls"] = r["_wrapper"].plain_calls
+                    if r["launches"] <= 0:
+                        raise AssertionError(f"{r['name']} was never launched on the {curve} path")
+            emit({"phase": "path", "curve": curve, "seconds": time.perf_counter() - t0,
+                  "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve}})
         for r in rows:
-            w = r.pop("_wrapper")
-            r["launches"] = w.launches
-            if w.launches <= 0:
-                raise AssertionError(f"{r['name']} was never launched on the main path")
-            if w.plain_calls != 0:
-                raise AssertionError(f"{r['name']}: the plain version ran on the main path")
+            del r["_wrapper"], r["_label"]
+            r["path"] = r.pop("_path")
+            r["max_abs_diff"] = r["max_abs_err"]  # the name the repo's records use
         breakdown_phase(dev, BATCH)
+        g2_breakdown_phase(dev, BATCH)
         if args.sweep:
             sweep_phase(dev)
 

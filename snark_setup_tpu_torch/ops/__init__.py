@@ -1,12 +1,14 @@
 """Device ops: multi-limb Montgomery field arithmetic, curve group law,
 GLV scalar multiplication and the batched point codec — the hot loops of the
-ceremony, as plain PyTorch on limb planes plus two CUDA kernels.
+ceremony, as plain PyTorch on limb planes plus three CUDA kernels.
 
     fp.py          — vectorised limb arithmetic (plain PyTorch)
-    ext.py         — the degree-1 field-ops protocol the curve code is written against
+    ext.py         — Fq / Fp2 / Fp3 field-ops protocol the curve code is written against
+    hostmath.py    — host-side extension-field power for constant set-up
     glv.py         — GLV parameter derivation and decomposition
     curve.py       — complete projective group law and batch scalar-mul
     codec.py       — batched point (de)serialisation
+    cuda_mul.py    — stacked Montgomery-product kernel wrapper + its plain version
     cuda_glv.py    — GLV digits kernel wrapper + its plain version
     cuda_ladder.py — whole-ladder kernel wrapper + its plain version
     build.py       — nvcc build + ctypes load of csrc/*.cu

@@ -4,12 +4,13 @@ reference's BatchDeserializer/BatchSerializer (C17, setup-utils/src/io/).
 Byte<->limb packing is vectorized numpy on the host (pure data movement);
 the expensive parts — Montgomery conversion, modular sqrt for decompression,
 on-curve checks, batch normalization, sign flags — run on the codec's device
-over the whole batch, in the limbs-leading (L, B) layout (see fp.py).
+over the whole batch, in the limbs-leading (L[, d], B) layout (see fp.py,
+ext.py): Fq coordinates for G1 (and BW6-761's G2), Fp2 / Fp3 for the other
+G2 groups.
 
 Wire format is the arkworks encoding (see serialize/arkworks.py): LE field
-bytes, flags in the top 2 bits of an element's final byte.
-
-Scope: degree-1 coordinate fields (the groups CurveOps covers).
+bytes, coefficient by coefficient, flags in the top 2 bits of an element's
+final byte.
 """
 
 from __future__ import annotations
@@ -23,16 +24,21 @@ from ..utils.enums import CheckForCorrectness, SubgroupCheckMode, UseCompression
 from ..utils.errors import PointAtInfinityError, SerializationError
 from .curve import CurveOps, PointVec, curve_ops
 from .fp import _sub_with_borrow
+from .hostmath import host_ext_one, host_ext_pow
 
 FLAG_Y_NEG = 1 << 7
 FLAG_INFINITY = 1 << 6
 FLAG_MASK = FLAG_Y_NEG | FLAG_INFINITY
 
 
+def _batch_shape(F, arr):
+    return arr.shape[1:] if F.degree == 1 else arr.shape[2:]
+
+
 def ext_pow_const(F, a, e: int):
     """a^e in a field-ops object for a host-known (public) exponent."""
     if e == 0:
-        return F.ones(a.shape[1:], a.device)
+        return F.ones(_batch_shape(F, a), a.device)
     acc = a
     for bit in bin(e)[3:]:
         acc = F.mul(acc, acc)
@@ -42,12 +48,12 @@ def ext_pow_const(F, a, e: int):
 
 
 class ExtSqrt:
-    """Branchless Tonelli–Shanks over Fq on device."""
+    """Branchless Tonelli–Shanks over Fp / Fp2 / Fp3 on device."""
 
     def __init__(self, F, q: int):
         self.F = F
         self.q = q
-        self.group_order = q - 1
+        self.group_order = q**F.degree - 1
         s, e = self.group_order, 0
         while s % 2 == 0:
             s //= 2
@@ -56,19 +62,24 @@ class ExtSqrt:
         self._find_nonresidue()
 
     def _find_nonresidue(self):
+        """A non-residue of the coordinate field (host search, fixed seed:
+        the same element as the reference's)."""
         import random
 
         rng = random.Random(99)
+        q, d = self.q, self.F.degree
+        nr = getattr(self.F, "nr", 0)
         half = self.group_order // 2
         while True:
-            z = rng.randrange(self.q)
-            if pow(z, half, self.q) != 1:
-                self.z = z
+            coeffs = tuple(rng.randrange(q) for _ in range(d))
+            if host_ext_pow(coeffs, half, q, d, nr) != host_ext_one(d):
+                self.z_coeffs = coeffs
                 break
 
     def c_init(self) -> np.ndarray:
-        """(L, 1) host constant: z^s, generator of the 2-Sylow group."""
-        return self.F.from_coeffs([pow(self.z, self.s, self.q)])
+        """(L[, d], 1) host constant: z^s, generator of the 2-Sylow group."""
+        d = self.F.degree
+        return self.F.from_coeffs([host_ext_pow(self.z_coeffs, self.s, self.q, d, getattr(self.F, "nr", 0))])
 
     def sqrt(self, a):
         """(root, is_square mask). The loop bounds depend only on the
@@ -81,8 +92,8 @@ class ExtSqrt:
         w = ext_pow_const(F, a, (self.s - 1) // 2)
         r = F.mul(a, w)
         t = F.mul(r, w)
-        c = F.fp.const_of(("sqrt_c", self.q), self.c_init(), a).expand_as(a)
-        one = F.ones(a.shape[1:], a.device)
+        c = F.const(("sqrt_c", self.q, F.degree), self.c_init(), a).expand_as(a)
+        one = F.ones(_batch_shape(F, a), a.device)
         for i in range(self.e, 1, -1):
             b = t
             for _ in range(i - 2):
@@ -104,9 +115,9 @@ class BatchPointCodec:
         self.F = ops.field
         self.fp = ops.fq
         self.spec = ops.spec
-        self.deg = 1
+        self.deg = self.F.degree
         self.fp_bytes = ops.spec.fp_bytes
-        self.compressed_size = self.fp_bytes
+        self.compressed_size = self.deg * self.fp_bytes
         self.uncompressed_size = 2 * self.compressed_size
         self.sqrter = ExtSqrt(self.F, ops.spec.q)
         self._q_limbs = int_to_limbs(self.spec.q, self.fp.L)
@@ -136,40 +147,58 @@ class BatchPointCodec:
         return raw[:, : self.fp_bytes]
 
     def _parse_coord(self, buf: np.ndarray, mask_flags: bool):
-        """(B, fp_bytes) -> (raw limbs (L, B), flags (B,))."""
+        """(B, deg*fp_bytes) -> (raw limbs (L[, d], B), flags (B,))."""
         flags = (buf[:, -1] & FLAG_MASK).copy()
         work = buf.copy()
         if mask_flags:
             work[:, -1] &= ~FLAG_MASK & 0xFF
-        return self._bytes_to_fp_limbs(work), flags
+        planes = [
+            self._bytes_to_fp_limbs(work[:, i * self.fp_bytes : (i + 1) * self.fp_bytes])
+            for i in range(self.deg)
+        ]
+        return (planes[0] if self.deg == 1 else np.stack(planes, axis=1)), flags
 
     def _range_check(self, raw: np.ndarray) -> np.ndarray:
-        """True where the coordinate < q (vectorized bigint compare).
-        raw: (L, B) -> (B,)."""
-        lt = np.zeros(raw.shape[1], bool)
-        decided = np.zeros(raw.shape[1], bool)
+        """True where every coefficient < q (vectorized bigint compare).
+        raw: (L[, d], B) -> (B,)."""
+        flat = raw.reshape(self.fp.L, -1)
+        lt = np.zeros(flat.shape[1], bool)
+        decided = np.zeros(flat.shape[1], bool)
         for k in range(self.fp.L - 1, -1, -1):
-            less = raw[k] < self._q_limbs[k]
-            more = raw[k] > self._q_limbs[k]
+            less = flat[k] < self._q_limbs[k]
+            more = flat[k] > self._q_limbs[k]
             lt |= (~decided) & less
             decided |= less | more
-        return lt  # equal -> not < q -> invalid
+        # equal -> not < q -> invalid
+        return lt.reshape(self.deg, -1).all(axis=0)
 
     # -- lexicographic y comparison ("is negative" flag) -------------------
     def y_is_negative(self, y_mont: torch.Tensor) -> torch.Tensor:
-        """y > -y as integers. Returns a (B,) bool tensor. Works on
-        Montgomery inputs."""
-        c = self.fp.from_mont(y_mont)
-        n = self.fp.neg(c)
-        _, borrow_gt = _sub_with_borrow(n, c)  # c > n  <=>  n - c borrows
-        return borrow_gt
+        """y > -y, comparing the highest coefficient first. Returns a (B,)
+        bool tensor. Works on Montgomery inputs."""
+        y_std = self.fp.from_mont(y_mont)
+        coeffs = [y_std] if self.deg == 1 else [y_std[:, i] for i in range(self.deg)]
+        result = decided = None
+        for c in reversed(coeffs):
+            n = self.fp.neg(c)
+            _, gt = _sub_with_borrow(n, c)  # c > n  <=>  n - c borrows
+            _, lt = _sub_with_borrow(c, n)
+            if result is None:
+                result, decided = gt, gt | lt
+            else:
+                result = result | (~decided & gt)
+                decided = decided | gt | lt
+        return result
 
     # -- curve equation ----------------------------------------------------
     def rhs(self, x):
-        """x^3 + b in the coordinate field (device, Montgomery)."""
+        """x^3 + a x + b in the coordinate field (device, Montgomery)."""
         F = self.F
+        ops = self.ops
         x3 = F.mul(F.mul(x, x), x)
-        return F.add(x3, self.ops._const("b_np", x).expand_as(x))
+        if not ops.a_is_zero:
+            x3 = F.add(x3, F.mul(ops._const("a_np", x).expand_as(x), x))
+        return F.add(x3, ops._const("b_np", x).expand_as(x))
 
     def on_curve_mask(self, p: PointVec):
         """Affine (Z in {0,1}) points: y^2 == rhs(x) or infinity."""
@@ -323,14 +352,18 @@ class BatchPointCodec:
         x_std = np.where(inf_np, 0, x_std)
         y_std = np.where(inf_np, 0, y_std)
         flags = np.where(inf_np, FLAG_INFINITY, np.where(~inf_np & neg, FLAG_Y_NEG, 0))
+
+        def coord_bytes(raw):
+            planes = [raw] if self.deg == 1 else [raw[:, i] for i in range(self.deg)]
+            return np.concatenate([self._fp_limbs_to_bytes(pl) for pl in planes], axis=1)
+
         if compression is UseCompression.YES:
-            out = self._fp_limbs_to_bytes(x_std)
+            out = coord_bytes(x_std)
             out[:, -1] |= flags.astype(np.uint8)
         else:
-            xb = self._fp_limbs_to_bytes(x_std)
-            yb = self._fp_limbs_to_bytes(y_std)
+            yb = coord_bytes(y_std)
             yb[:, -1] |= flags.astype(np.uint8)
-            out = np.concatenate([xb, yb], axis=1)
+            out = np.concatenate([coord_bytes(x_std), yb], axis=1)
         return out.tobytes()
 
     def write_batch(

@@ -1,6 +1,8 @@
 """State carried across the two packages' seams: limb planes and point
 batches between the reference layout (numpy uint32, 16-bit limbs, batch axis
-last) and the port's tensors (torch.int32, same shape, same values).
+last) and the port's tensors (torch.int32, same shape, same values). Any
+shape passes unchanged: Fq planes (L, B), extension-field planes (L, d, B),
+stacked operands (L, S, B) or (L, d, S, B).
 
 Values are < 2^16, so the two dtypes hold the same bits; these helpers only
 change the container. Tests use them to hand both packages the same numpy

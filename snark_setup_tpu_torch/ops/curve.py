@@ -1,23 +1,23 @@
 """Batched elliptic-curve group law on device — complete projective formulas.
 
-Scope of this module today: source groups whose coordinates live in the base
-field Fq (degree 1) on curves with a = 0 — G1 of BLS12-377/381 and both
-groups of BW6-761. Anything else raises NotImplementedError naming the
-ROADMAP item that brings it.
+Coordinates are field elements of a field-ops object (ops/ext.py: Fq, Fp2 or
+Fp3 limb planes), so one group law serves G1 and G2 of every curve in
+`curves/constants.py`, a = 0 or not.
 
 Design:
-- Limbs-leading layout (fp.py): coordinates are (L, B) int32 limb planes with
-  the batch axis last; a point batch is a `PointVec` dict of x, y, z.
-- Renes–Costello–Batina *complete* formulas (eprint 2015/1060, Algorithm 7
-  for addition and Algorithm 9 for doubling, both a = 0): branch-free, they
-  handle doubling and infinity uniformly. Infinity is (0 : 1 : 0).
-  Independent products of one formula are stacked on an extra batch axis so a
-  group operation is three wide multiplications instead of fourteen narrow
-  ones (eager PyTorch is launch-bound at small widths).
-- `scalar_mul` is the GLV path ([k mod r]P, subgroup points only): digit
-  extraction and the whole windowed ladder are the two CUDA kernels
-  (cuda_glv.py, cuda_ladder.py) for tensors on the card and their plain
-  PyTorch versions for tensors on the CPU. `scalar_mul_windowed` is the raw
+- Limbs-leading layout (fp.py): coordinates are (L[, d], B) int32 limb planes
+  with the batch axis last; a point batch is a `PointVec` dict of x, y, z.
+- Renes–Costello–Batina *complete* formulas (eprint 2015/1060: Algorithm 1
+  for a != 0, Algorithm 7 / 9 for a = 0): branch-free, they handle doubling
+  and infinity uniformly. Infinity is (0 : 1 : 0). Every formula is three
+  multiplication rounds; each round is one `F.mul_stacked` call — stacked
+  products, a weighted merge of their columns and one reduction per output —
+  which is one launch of the stacked-product kernel K5 on the card.
+- `scalar_mul` is the GLV path ([k mod r]P, subgroup points only) where the
+  curve has the cube-root endomorphism: on Fq coordinates the digits kernel
+  K3 and the whole-ladder kernel K4 (cuda_glv.py, cuda_ladder.py); on Fp2
+  coordinates K3 for the digits and a windowed ladder over the group law
+  (K5 rounds). Curves without it (a != 0) take `scalar_mul_windowed`, the raw
   integer ladder that makes no subgroup assumption.
 
 Every field op returns canonical values, so the projective coordinates these
@@ -27,6 +27,7 @@ functions return equal the reference's limb for limb.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -57,6 +58,16 @@ class PointVec(dict):
         return PointVec({k: v.to(device) for k, v in self.items()})
 
 
+def _identity_weights(n: int) -> tuple:
+    return tuple(tuple(1 if i == j else 0 for j in range(n)) for i in range(n))
+
+
+_ID2 = _identity_weights(2)
+_ID4 = _identity_weights(4)
+_ID6 = _identity_weights(6)
+_PAIRS3 = ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1))
+
+
 class CurveOps:
     """Group-law ops for one source group of one curve."""
 
@@ -67,33 +78,36 @@ class CurveOps:
         self.group_name = group
         gspec = spec.g1 if group == "g1" else spec.g2
         self.gspec = gspec
-        if gspec.field_kind != "fp":
-            raise NotImplementedError(
-                f"{spec.name} {group} has {gspec.field_kind} coordinates: the "
-                "extension towers and their stacked-product kernel are not "
-                "ported yet (ROADMAP Queue A, 'ext towers + K5')"
-            )
-        if any(v != 0 for v in gspec.a):
-            raise NotImplementedError(
-                f"{spec.name} {group} has a != 0: the generic complete "
-                "addition is not ported yet (ROADMAP Queue A, 'MNT curves')"
-            )
-        self.a_is_zero = True
         self.fq = fp_ops(spec.q)
-        self.field = make_field_ops(self.fq, 1, 0)
+        degree = {"fp": 1, "fp2": 2, "fp3": 3}[gspec.field_kind]
+        self.field = make_field_ops(self.fq, degree, spec.ext_nonresidue)
         self.host_curve = g1_curve(spec) if group == "g1" else g2_curve(spec)
-        b = gspec.b[0]
-        self.b_np = self.field.from_coeffs([b])
-        b3i = 3 * b % spec.q
-        self.b3_np = self.field.from_coeffs([b3i])
-        # |3b| as a small integer where the curve allows it (b in {1, -1, 4}
-        # for every group in scope): the ladder kernel replaces the 3b
-        # products by short addition chains. (|w|, negate) or None.
+        # curve constants, Montgomery form, host numpy with a trailing
+        # singleton batch axis: (L[, d], 1)
+        a_host = tuple(gspec.a) if degree > 1 else (gspec.a[0],)
+        b_host = tuple(gspec.b) if degree > 1 else (gspec.b[0],)
+        self.a_is_zero = all(v == 0 for v in a_host)
+        self.a_np = self.field.from_coeffs([a_host])
+        self.b_np = self.field.from_coeffs([b_host])
+        self.b3_np = self.field.from_coeffs([tuple(3 * v % spec.q for v in b_host)])
+        if not self.a_is_zero:
+            # -(a^2), used by the complete addition's round 1
+            from .hostmath import host_ext_pow
+
+            nr = spec.ext_nonresidue if degree > 1 else 0
+            a2 = host_ext_pow(a_host, 2, spec.q, degree, nr)
+            self.neg_a2_np = self.field.from_coeffs([tuple((spec.q - c) % spec.q for c in a2)])
+        # |3b| as a small integer where the curve allows it (Fq coordinates,
+        # a = 0, b in {1, -1, 4}): doubling folds 3b Z^2 into round 0 as a
+        # column weight, and the ladder kernel replaces the 3b products by
+        # short addition chains. (|w|, negate) or None.
         self._b3_small = None
-        if b3i <= 1 << 10:
-            self._b3_small = (b3i, False)
-        elif spec.q - b3i <= 1 << 10:
-            self._b3_small = (spec.q - b3i, True)
+        if self.a_is_zero and degree == 1:
+            b3i = 3 * b_host[0] % spec.q
+            if b3i <= 1 << 10:
+                self._b3_small = (b3i, False)
+            elif spec.q - b3i <= 1 << 10:
+                self._b3_small = (spec.q - b3i, True)
         # scalar field
         self.fr = fp_ops(spec.r)
         self.scalar_bits = spec.r.bit_length()
@@ -104,12 +118,15 @@ class CurveOps:
         params = derive_glv(spec.name, group)
         if params is not None:
             self.glv = GLVOps(params, self.fr.L)
+            # beta in Fq: multiplying every coordinate plane by it applies phi
+            # whatever the extension degree (coefficient-wise)
             self.beta_np = self.fq.from_int(params.beta)[:, None]
 
     def _const(self, name: str, like: torch.Tensor) -> torch.Tensor:
-        """b_np / b3_np / beta_np as a tensor broadcastable against `like`."""
+        """a_np / b_np / b3_np / neg_a2_np as a tensor broadcastable against
+        a coordinate shaped like `like`."""
         key = (name, self.spec.name, self.group_name)
-        return self.fq.const_of(key, getattr(self, name), like)
+        return self.field.const(key, getattr(self, name), like)
 
     # -- constructors ------------------------------------------------------
     def infinity(self, shape, device) -> PointVec:
@@ -121,16 +138,25 @@ class CurveOps:
 
     def from_affine_host(self, points: list[AffinePoint], device) -> PointVec:
         """Host affine points -> projective batch on `device`."""
+        deg = self.field.degree
         xs, ys, infs = [], [], []
         for p in points:
             inf = p.is_infinity
-            xs.append(0 if inf else p.x.v)
-            ys.append(1 if inf else p.y.v)
+            if inf:
+                xs.append((0,) * deg)
+                ys.append((1,) + (0,) * (deg - 1))
+            elif deg == 1:
+                xs.append((p.x.v,))
+                ys.append((p.y.v,))
+            else:
+                xs.append(tuple(c.v for c in p.x.coeffs))
+                ys.append(tuple(c.v for c in p.y.coeffs))
             infs.append(inf)
+        x = self.field.from_coeffs(xs)  # (L[, d], B) host numpy Montgomery
+        y = self.field.from_coeffs(ys)
         inf_mask = np.array(infs, bool)
-        x = self.fq.from_int(xs)
-        y = self.fq.from_int(ys)
-        z = np.where(inf_mask, 0, np.broadcast_to(self.fq.one_mont_np, x.shape))
+        one = np.broadcast_to(self.field.from_coeffs([(1,) + (0,) * (deg - 1)]), x.shape)
+        z = np.where(inf_mask, 0, one)
         return PointVec(
             x=self.fq.tensor(x, device), y=self.fq.tensor(y, device), z=self.fq.tensor(z, device)
         )
@@ -138,73 +164,111 @@ class CurveOps:
     def to_affine_host(self, p: PointVec) -> list[AffinePoint]:
         """Device batch -> host affine points (batch-inverts Z on device)."""
         x, y, inf = self.normalize(p)
-        xs = self._std_to_ints(self.fq.from_mont(x))
-        ys = self._std_to_ints(self.fq.from_mont(y))
+        cxs = self._std_to_coeffs(self.fq.from_mont(x))
+        cys = self._std_to_coeffs(self.fq.from_mont(y))
         out = []
-        for vx, vy, isinf in zip(xs, ys, inf.cpu().numpy().reshape(-1)):
-            out.append(INFINITY if isinf else AffinePoint(self.spec.fp(vx), self.spec.fp(vy)))
+        for cx, cy, isinf in zip(cxs, cys, inf.cpu().numpy().reshape(-1)):
+            if isinf:
+                out.append(INFINITY)
+            elif self.field.degree == 1:
+                out.append(AffinePoint(self.spec.fp(cx[0]), self.spec.fp(cy[0])))
+            else:
+                out.append(AffinePoint(self.spec.g2_field(cx), self.spec.g2_field(cy)))
         return out
 
-    def _std_to_ints(self, arr: torch.Tensor) -> list[int]:
-        """Standard-form limb planes (L, B) -> list of ints."""
+    def _std_to_coeffs(self, arr: torch.Tensor) -> list[tuple]:
+        """Standard-form limb planes (L[, d], B) -> list of int tuples."""
         a = arr.cpu().numpy()
-        return limbs_batch_to_ints(a.reshape(a.shape[0], -1).T)
+        L, deg = a.shape[0], self.field.degree
+        # (L, d, B) -> (B, d, L) rows, point-major
+        flat = a.reshape(L, deg, -1).transpose(2, 1, 0).reshape(-1, L)
+        ints = limbs_batch_to_ints(flat)
+        return [tuple(ints[i * deg : (i + 1) * deg]) for i in range(len(ints) // deg)]
 
     # -- group law ---------------------------------------------------------
     def add(self, p: PointVec, q: PointVec) -> PointVec:
-        """RCB complete addition (Alg. 7, a = 0) in three stacked
-        multiplication rounds: 14 products, 9 reductions."""
+        """RCB complete addition in three stacked multiplication rounds
+        (Alg. 7 for a = 0, Alg. 1 otherwise)."""
         F = self.field
         X1, Y1, Z1 = p["x"], p["y"], p["z"]
         X2, Y2, Z2 = q["x"], q["y"], q["z"]
 
         # round 0: the six symmetric products (the three pair sums of each
         # operand come from one stacked addition)
+        ax = 1 if F.degree == 1 else 2  # the stack axis
         sums = F.add(F.stack([X1, X1, Y1, X2, X2, Y2]), F.stack([Y1, Z1, Z1, Y2, Z2, Z2]))
-        U = torch.cat([F.stack([X1, Y1, Z1]), sums[:, 0:3]], dim=1)
-        V = torch.cat([F.stack([X2, Y2, Z2]), sums[:, 3:6]], dim=1)
-        W = F.mul(U, V)
-        t0, t1, t2 = W[:, 0], W[:, 1], W[:, 2]
-        cross = F.sub(W[:, 3:6], F.add(F.stack([t0, t0, t1]), F.stack([t1, t2, t2])))
-        t3, t4, t5 = cross[:, 0], cross[:, 1], cross[:, 2]  # X1Y2+X2Y1, X1Z2+X2Z1, Y1Z2+Y2Z1
+        U = torch.cat([F.stack([X1, Y1, Z1]), F.unstack(sums, slice(0, 3))], dim=ax)
+        V = torch.cat([F.stack([X2, Y2, Z2]), F.unstack(sums, slice(3, 6))], dim=ax)
+        W = F.mul_stacked(U, V, _ID6, F.prod_nprod)
+        t0, t1, t2 = (F.unstack(W, i) for i in range(3))
+        # X1Y2+X2Y1, X1Z2+X2Z1, Y1Z2+Y2Z1
+        cross = F.sub(F.unstack(W, slice(3, 6)), F.add(F.stack([t0, t0, t1]), F.stack([t1, t2, t2])))
+        t3, t4, t5 = (F.unstack(cross, i) for i in range(3))
 
-        # round 1: constant products with 3b
-        st = F.stack([t2, t4])
-        m = F.mul(self._const("b3_np", st), st)
-        Z3_, t4b = m[:, 0], m[:, 1]
-        t1n = F.add(F.add(t0, t0), t0)  # 3 X1X2
+        if self.a_is_zero:
+            # round 1: constant products with 3b
+            st = F.stack([t2, t4])
+            m = F.mul_stacked(self._const("b3_np", st).expand_as(st), st, _ID2, F.prod_nprod)
+            Z3_, t4b = F.unstack(m, 0), F.unstack(m, 1)
+            t1n = F.add(F.add(t0, t0), t0)  # 3 X1X2
+        else:
+            # round 1: constant products, 3-group weighted merge
+            a_c, b3, na2 = (self._const(n, X1).expand_as(X1) for n in ("a_np", "b3_np", "neg_a2_np"))
+            consts = F.stack([a_c, b3, b3, a_c, na2, a_c])
+            opnds = F.stack([t4, t2, t4, t0, t2, t2])
+            mr = F.mul_stacked(
+                consts, opnds,
+                ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 1, 0), (0, 0, 0, 0, 0, 1)),
+                3 * F.prod_nprod,
+            )
+            Z3_ = F.unstack(mr, 0)  # a t4 + 3b Z1Z2
+            t4b = F.unstack(mr, 1)  # 3b t4 + a(X1X2 - a Z1Z2)
+            t1n = F.add(F.add(F.add(t0, t0), t0), F.unstack(mr, 2))  # 3X1X2 + a Z1Z2
         X3_ = F.sub(t1, Z3_)
         Z3p = F.add(t1, Z3_)
 
         # round 2: six products merged pairwise under one reduction each
-        # (two products share a REDC: valid while 2N < R)
         A = F.stack([X3_, t1n, t3, F.neg(t5), t5, t3])
         Bv = F.stack([Z3p, t4b, X3_, t4b, Z3p, t1n])
-        cols = F.prod_cols(A, Bv)
-        R = F.redc(cols[:, 0::2] + cols[:, 1::2], 2)
-        return PointVec(x=R[:, 1], y=R[:, 0], z=R[:, 2])
+        R = F.mul_stacked(A, Bv, _PAIRS3, 2 * F.prod_nprod)
+        return PointVec(x=F.unstack(R, 1), y=F.unstack(R, 0), z=F.unstack(R, 2))
 
     def double(self, p: PointVec) -> PointVec:
-        """Dedicated RCB doubling (Alg. 9, a = 0): 9 products in three
-        stacked rounds."""
+        """Complete doubling. For a = 0 the dedicated RCB doubling (Alg. 9):
+        9 products in three stacked rounds (two where |3b| folds into round 0
+        as a weight). a != 0 is add(p, p)."""
+        if not self.a_is_zero:
+            return self.add(p, p)
         F = self.field
         X, Y, Z = p["x"], p["y"], p["z"]
-        # round 0: t0=Y^2, t1=YZ, m3=XY, t2=Z^2
-        W = F.mul(F.stack([Y, Y, X, Z]), F.stack([Y, Z, Y, Z]))
-        t0, t1, m3, t2 = W[:, 0], W[:, 1], W[:, 2], W[:, 3]
-        # round 1: c = 3b * Z^2
-        c = F.mul(self._const("b3_np", t2), t2)
-        # 8 t0 and 3 c by doubling chains, the two chains stacked
-        d = F.add(F.stack([t0, c]), F.stack([t0, c]))  # 2 t0, 2 c
-        d = F.add(d, F.stack([d[:, 0], c]))  # 4 t0, 3 c
-        z3a = F.add(d[:, 0], d[:, 0])
-        t0p = F.sub(t0, d[:, 1])
+        U = F.stack([Y, Y, X, Z])
+        if self._b3_small is not None:
+            # fold c = 3b Z^2 into round 0 — as a column weight on the Z*Z
+            # stack when w N < R (the REDC bound), else by pre-scaling one
+            # operand; either way the 3b round disappears
+            w, negate = self._b3_small
+            if w * self.spec.q < self.fq.spec.mont_r_pow:
+                wts = ((1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, w))
+                W = F.mul_stacked(U, F.stack([Y, Z, Y, Z]), wts, w * F.prod_nprod)
+            else:
+                W = F.mul_stacked(U, F.stack([Y, Z, Y, F.mul_small(Z, w)]), _ID4, F.prod_nprod)
+            t0, t1, m3, c = (F.unstack(W, i) for i in range(4))
+            if negate:
+                c = F.neg(c)
+        else:
+            # round 0: t0=Y^2, t1=YZ, m3=XY, t2=Z^2; round 1: c = 3b Z^2
+            W = F.mul_stacked(U, F.stack([Y, Z, Y, Z]), _ID4, F.prod_nprod)
+            t0, t1, m3, t2 = (F.unstack(W, i) for i in range(4))
+            st = F.stack([t2])
+            c = F.unstack(F.mul_stacked(self._const("b3_np", st).expand_as(st), st, ((1,),), F.prod_nprod), 0)
+        z3a = F.mul_small(t0, 8)
+        t0p = F.sub(t0, F.mul_small(c, 3))
         y3sum = F.add(t0, c)
         # round 2: X3=c*z3a, Z3=t1*z3a, Y3a=t0p*y3sum, X3b=t0p*m3
-        W2 = F.mul(F.stack([c, t1, t0p, t0p]), F.stack([z3a, z3a, y3sum, m3]))
-        x3, z3, y3a, x3b = W2[:, 0], W2[:, 1], W2[:, 2], W2[:, 3]
+        W2 = F.mul_stacked(F.stack([c, t1, t0p, t0p]), F.stack([z3a, z3a, y3sum, m3]), _ID4, F.prod_nprod)
+        x3, z3, y3a, x3b = (F.unstack(W2, i) for i in range(4))
         xy = F.add(F.stack([x3b, x3]), F.stack([x3b, y3a]))
-        return PointVec(x=xy[:, 0], y=xy[:, 1], z=z3)
+        return PointVec(x=F.unstack(xy, 0), y=F.unstack(xy, 1), z=z3)
 
     def neg(self, p: PointVec) -> PointVec:
         return PointVec(x=p["x"], y=self.field.neg(p["y"]), z=p["z"])
@@ -234,20 +298,20 @@ class CurveOps:
 
     def _window_table(self, p: PointVec) -> dict:
         """Stacked multiples table T[j] = j*P for j in [0, 2^w): coords
-        (L, 2^w, B)."""
+        (L[, d], 2^w, B)."""
         B = p["x"].shape[-1]
         rows = [self.infinity((B,), p["x"].device), p, self.double(p)]
         for _ in range(3, 1 << self.WINDOW):
             rows.append(self.add(rows[-1], p))
-        return {k: torch.stack([r[k] for r in rows], dim=1) for k in ("x", "y", "z")}
+        return {k: torch.stack([r[k] for r in rows], dim=-2) for k in ("x", "y", "z")}
 
     def _select_entry(self, table_arr: dict, digit: torch.Tensor) -> PointVec:
         """Uniform-access table lookup: a one-hot contraction over all 2^w
-        table rows (axis 1), so the memory access pattern does not depend
+        table rows (axis -2), so the memory access pattern does not depend
         on the (secret) digit."""
         rows = torch.arange(1 << self.WINDOW, device=digit.device, dtype=digit.dtype)
         oh = (digit[None, :] == rows[:, None]).to(torch.int32)  # (2^w, B)
-        return PointVec({k: (arr * oh[None]).sum(dim=1, dtype=torch.int32) for k, arr in table_arr.items()})
+        return PointVec({k: (arr * oh).sum(dim=-2, dtype=torch.int32) for k, arr in table_arr.items()})
 
     def _window_doubles(self, acc: PointVec, w: int) -> PointVec:
         for _ in range(w):
@@ -259,8 +323,8 @@ class CurveOps:
     ) -> PointVec:
         """Batched fixed-window scalar multiplication (w=4) over the RAW
         integer value of the scalars (no mod-r or subgroup assumptions —
-        this is the ladder a Direct subgroup check must use). Plain PyTorch
-        on whatever device the tensors are on."""
+        this is the ladder a Direct subgroup check must use). Every group
+        operation is three K5 rounds on the card."""
         w = self.WINDOW
         digits = self.scalar_digits_msb(scalars_raw, w, nbits)
         table_arr = self._window_table(p)
@@ -270,11 +334,24 @@ class CurveOps:
             acc = self.add(acc, self._select_entry(table_arr, digit))
         return acc
 
+    def _fq_mul_planes(self, arr: torch.Tensor, const_np: np.ndarray, key) -> torch.Tensor:
+        """Multiply every (extension-coefficient x stack) plane of
+        `arr` (L, *mid, B) by a base-field constant: one K5 launch with
+        identity weights over the flattened planes."""
+        L, B = arr.shape[0], arr.shape[-1]
+        S = math.prod(arr.shape[1:-1])
+        if S == 0:
+            return arr
+        U = arr.reshape(L, S, B)
+        V = self.fq.const_of(key, const_np, U).expand_as(U)
+        return self.field.product(U, V, _identity_weights(S)).reshape(arr.shape)
+
     def endo(self, p: PointVec) -> PointVec:
         """Cube-root endomorphism phi(x, y) = (beta*x, y) on projective
-        coordinates."""
+        coordinates. beta is in Fq, so the multiply is coefficient-wise even
+        on extension-field coordinates."""
         assert self.glv is not None
-        x = self.fq.mont_mul(p["x"], self._const("beta_np", p["x"]))
+        x = self._fq_mul_planes(p["x"], self.beta_np, ("beta_np", self.spec.name, self.group_name))
         return PointVec(x=x, y=p["y"], z=p["z"])
 
     def scalar_mul(self, p: PointVec, scalars_raw: torch.Tensor) -> PointVec:
@@ -293,13 +370,37 @@ class CurveOps:
     def _scalar_mul_glv(self, p: PointVec, scalars_raw: torch.Tensor) -> PointVec:
         """k*P = k1*(s1 P) + k2*(s2 phi(P)) with half-width k1, k2 from the
         lattice decomposition: ~half the doublings of the full-width ladder.
-        Two launches on the card: the digits kernel, then the whole-ladder
-        kernel; on CPU tensors the wrappers run their plain versions."""
+        The digits come from the digits kernel (K3) on the card. On Fq
+        coordinates the whole ladder is one kernel (K4). On extension
+        coordinates the ladder runs over the group law: the phi table comes
+        from the P table with one coefficient-wise Fq multiply (phi is a
+        homomorphism, so phi(j * s1 P) = j * s1 phi(P); a conditional
+        y-negation fixes the sign where s1 != s2)."""
         from .cuda_glv import glv_digits_for
-        from .cuda_ladder import fused_ladder_for
 
         d1, d2, neg1, flip = glv_digits_for(self.spec.name, self.group_name)(scalars_raw)
-        return fused_ladder_for(self.spec.name, self.group_name)(p, d1, d2, neg1, flip)
+        if self.field.degree == 1:
+            from .cuda_ladder import fused_ladder_for
+
+            return fused_ladder_for(self.spec.name, self.group_name)(p, d1, d2, neg1, flip)
+        return self._glv_ladder(p, d1, d2, neg1.bool(), flip.bool())
+
+    def _glv_ladder(self, p: PointVec, d1, d2, neg1, flip) -> PointVec:
+        """The windowed GLV ladder over the group law (the reference's
+        non-fused branch, curve_jax.py:598-623)."""
+        F = self.field
+        t1 = self._window_table(self.select(neg1, self.neg(p), p))
+        t2 = {
+            "x": self._fq_mul_planes(t1["x"], self.beta_np, ("beta_np", self.spec.name, self.group_name)),
+            "y": F.select(flip, F.neg(t1["y"]), t1["y"]),
+            "z": t1["z"],
+        }
+        acc = self.infinity((p["x"].shape[-1],), p["x"].device)
+        for k in range(d1.shape[0]):
+            acc = self._window_doubles(acc, self.WINDOW)
+            acc = self.add(acc, self._select_entry(t1, d1[k]))
+            acc = self.add(acc, self._select_entry(t2, d2[k]))
+        return acc
 
     # -- normalization -----------------------------------------------------
     def normalize(self, p: PointVec):
@@ -307,7 +408,8 @@ class CurveOps:
         (flattened) batch axes. Returns (x, y, infinity_mask)."""
         F = self.field
         z = p["z"]
-        inv_z = _tree_batch_inv(F, z.reshape(z.shape[0], -1)).reshape(z.shape)
+        el_ndim = 1 if F.degree == 1 else 2
+        inv_z = _tree_batch_inv(F, z.reshape(*z.shape[:el_ndim], -1)).reshape(z.shape)
         return F.mul(p["x"], inv_z), F.mul(p["y"], inv_z), self.is_infinity(p)
 
 

@@ -234,6 +234,12 @@ class FpOps:
         assert nprod * self.modulus < self.spec.mont_r_pow, "REDC bound violated"
         L = self.L
         bits = self._cols_bits(nprod)
+        if bits + SHIFT + L.bit_length() > 62:
+            # a wide weighted sum: the product with N' below would leave
+            # int64, so resolve the columns first (V < nprod N^2 < R N fits
+            # the 2L limbs exactly)
+            cols = _resolve_carries(cols, bits)
+            bits = self._cols_bits(1)
         # m = (V mod R) * N' mod R, straight from the unresolved low columns
         # (a product of two L-limb operands truncated to L columns)
         m_cols = _diag_rect(cols[:L], self.const("Nprime", cols, torch.int64))[:L]

@@ -5,10 +5,11 @@ Buffer-oriented API mirroring the reference's `Phase1` static methods
 `&[u8]`-style buffers so the CLI can hand it mmaps and tests can hand it
 bytearrays.
 
-Ported so far: key generation, initialization and computation (contribute).
-The hot loop of computation runs on the device: per overlapping batch, powers
-tau^i are generated there (vectorized square-and-multiply over the exponent
-bits), applied with the batched GLV scalar-mul (two CUDA kernels), then
+Ported so far: key generation, initialization and computation (contribute)
+on every curve of the CLI (BLS12-377/381, BW6-761, MNT4-753, MNT6-753). The
+hot loop of computation runs on the device: per batch, powers tau^i are
+generated there (vectorized square-and-multiply over the exponent bits),
+applied with the batched scalar-mul (the CUDA kernels of `ops/`), then
 batch-normalized and recompressed there; only byte packing runs on the host.
 Verification, aggregation, split and decompress are not ported yet.
 """

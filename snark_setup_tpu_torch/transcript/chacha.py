@@ -60,7 +60,14 @@ def chacha_words_np(key_words, block0: int, nblocks: int) -> np.ndarray:
     """Bulk ChaCha20 keystream: u32 words of blocks [block0, block0+nblocks)
     as a flat (nblocks*16,) uint32 array — vectorized over the block axis.
     Bit-identical to chacha20_block / the streaming ChaChaRng."""
-    counters = np.arange(block0, block0 + nblocks, dtype=np.uint64)
+    return chacha_blocks_np(key_words, np.arange(block0, block0 + nblocks, dtype=np.uint64)).reshape(-1)
+
+
+def chacha_blocks_np(key_words, counters: np.ndarray) -> np.ndarray:
+    """The ChaCha20 blocks at the given block counters (any order, uint64):
+    (len(counters), 16) uint32 words — vectorized over the block axis."""
+    counters = np.asarray(counters, np.uint64)
+    nblocks = counters.shape[0]
     init = np.empty((16, nblocks), np.uint32)
     for i, c in enumerate(_CONSTANTS):
         init[i] = c
@@ -96,7 +103,7 @@ def chacha_words_np(key_words, block0: int, nblocks: int) -> np.ndarray:
             qr(2, 7, 8, 13)
             qr(3, 4, 9, 14)
         s += init
-    return s.T.reshape(-1)
+    return s.T
 
 
 class ChaChaRng:

@@ -59,16 +59,19 @@ def hash_to_g2(spec: CurveSpec, digest: bytes) -> AffinePoint:
     first 32 digest bytes; multiply by the cofactor; retry on zero.
 
     Byte-consumption detail (interop-critical): each candidate byte is
-    rand 0.8's `rng.gen::<u8>()`, which consumes a FULL u32 from the stream.
-    The rejection rate is high (unmasked top bits of each base-field
-    coefficient must happen to be < p, ~2^-12 for BLS12-377 G2), so the
-    keystream is generated in numpy bulk and candidates are pre-filtered
-    vectorized; the exact arkworks parse runs only on survivors, in stream
-    order — bit-identical to the sequential loop.
+    rand 0.8's `rng.gen::<u8>()`, which consumes a FULL u32 from the stream,
+    so candidate i is the low bytes of keystream words [i n, (i+1) n). The
+    rejection rate is high (the unmasked top byte of every base-field
+    coefficient must be <= p's, ~2^-21 for MNT6-753's three coefficients), so
+    candidates are pre-filtered on those top bytes alone — one keystream
+    block per candidate and coefficient, in numpy bulk — and the exact
+    arkworks parse runs only on survivors, in stream order: bit-identical to
+    the sequential loop, since the pre-filter is a necessary condition of
+    the exact one.
     """
     import numpy as np
 
-    from .chacha import chacha_words_np
+    from .chacha import chacha_blocks_np, chacha_words_np
 
     assert len(digest) >= 32
     seed = bytes(digest[:32])
@@ -78,39 +81,43 @@ def hash_to_g2(spec: CurveSpec, digest: bytes) -> AffinePoint:
     n = codec.compressed_size
     fp_bytes = (spec.q.bit_length() + 7) // 8
     deg = codec.ext_degree
-
-    # vectorized "coefficient < q" filter on LE bytes
     q_bytes = np.frombuffer(spec.q.to_bytes(fp_bytes, "little"), np.uint8)
+    q_top = int(q_bytes[-1])
 
-    def coeff_lt_q(rows: np.ndarray) -> np.ndarray:
+    def lt_q(coeff: np.ndarray) -> bool:
         # lexicographic from the most-significant byte
-        lt = np.zeros(rows.shape[0], bool)
-        decided = np.zeros(rows.shape[0], bool)
         for k in range(fp_bytes - 1, -1, -1):
-            less = rows[:, k] < q_bytes[k]
-            more = rows[:, k] > q_bytes[k]
-            lt |= ~decided & less
-            decided |= less | more
-        return lt
+            if coeff[k] != q_bytes[k]:
+                return bool(coeff[k] < q_bytes[k])
+        return False
 
-    CAND_CHUNK = 4096
-    block = 0
+    def top_bytes(cands: np.ndarray, c: int) -> np.ndarray:
+        """Most significant byte of coefficient c of each candidate."""
+        pos = cands * n + c * fp_bytes + fp_bytes - 1
+        blocks = chacha_blocks_np(key_words, (pos // 16).astype(np.uint64))
+        return (blocks[np.arange(pos.shape[0]), pos % 16] & 0xFF).astype(np.int64)
+
+    CAND_CHUNK = 1 << 16
+    first = 0
     while True:
-        nwords = CAND_CHUNK * n
-        nblocks = -(-nwords // 16)
-        words = chacha_words_np(key_words, block, nblocks)[:nwords]
-        block += nblocks
-        # NB: candidates must align to exact word positions; keep chunks
-        # word-exact by always consuming CAND_CHUNK*n words.
-        cand = (words & 0xFF).astype(np.uint8).reshape(CAND_CHUNK, n)
-        flags = cand[:, -1] & 0xC0
-        ok = ~((flags == 0xC0))
-        work = cand.copy()
-        work[:, -1] &= 0x3F
-        for c in range(deg):
-            ok &= coeff_lt_q(work[:, c * fp_bytes : (c + 1) * fp_bytes])
-        for idx in np.nonzero(ok)[0]:
-            p = codec.from_random_bytes(bytes(cand[idx]))
+        cands = np.arange(first, first + CAND_CHUNK, dtype=np.int64)
+        first += CAND_CHUNK
+        # the last coefficient's top byte carries the flags: both set is
+        # invalid, and the coefficient is read with them masked off
+        b = top_bytes(cands, deg - 1)
+        cands = cands[((b & 0xC0) != 0xC0) & ((b & 0x3F) <= q_top)]
+        for c in range(deg - 1):
+            if cands.size:
+                cands = cands[top_bytes(cands, c) <= q_top]
+        for i in cands:  # stream order
+            w0 = int(i) * n
+            words = chacha_words_np(key_words, w0 // 16, (w0 + n - 1) // 16 - w0 // 16 + 1)
+            cand = (words[w0 % 16 : w0 % 16 + n] & 0xFF).astype(np.uint8)
+            work = cand.copy()
+            work[-1] &= 0x3F
+            if not all(lt_q(work[c * fp_bytes : (c + 1) * fp_bytes]) for c in range(deg)):
+                continue
+            p = codec.from_random_bytes(bytes(cand))
             if p is None:
                 continue
             scaled = curve.clear_cofactor(p)

@@ -4,6 +4,7 @@ curve checks. Bytes compared for exact equality."""
 
 import numpy as np
 import pytest
+import torch
 
 from snark_setup_tpu.ops.codec_jax import batch_codec as jax_batch_codec
 from snark_setup_tpu.utils.enums import UseCompression as JUseCompression
@@ -14,7 +15,13 @@ from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
 from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
 from snark_setup_tpu_torch.utils.errors import PointAtInfinityError, SerializationError
 
-GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
+
+GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2"),
+          ("bls12_377", "g2"), ("mnt4_753", "g1"), ("mnt6_753", "g2")]
 
 
 def _setup(curve, group, with_infinity=True):
@@ -78,7 +85,10 @@ def test_malformed_input_raises(curve, group):
         codec.read_batch(bytes(bad), UseCompression.YES)
     # an x with no point on the curve
     hc, q = codec.ops.host_curve, codec.spec.q
-    x = next(x for x in range(2, 200) if hc.solve_y(codec.spec.fp(x)) is None)
+    def el(v):
+        return codec.spec.fp(v) if codec.deg == 1 else codec.spec.g2_field((v,) + (0,) * (codec.deg - 1))
+
+    x = next(x for x in range(2, 200) if hc.solve_y(el(x)) is None)
     bad = bytearray(good)
     bad[: codec.compressed_size] = x.to_bytes(codec.compressed_size, "little")
     with pytest.raises(SerializationError, match="sqrt"):
@@ -88,6 +98,25 @@ def test_malformed_input_raises(curve, group):
     unc[0] ^= 1
     mask = codec.on_curve_mask(codec.read_batch(bytes(unc), UseCompression.NO))
     assert mask.tolist() == [False] + [True] * (len(pts) - 1)
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "mnt6_753"])
+def test_g2_codec_equals_reference(curve):
+    """Fp2 (BLS12-377) and Fp3 (MNT6-753) G2 points with infinity, both
+    signs of one y: the same compressed bytes through both packages' device
+    codecs give the same Montgomery planes (decompression = the tower square
+    root); on Fp2 the written bytes equal the JAX package's as well."""
+    codec, host, pts = _setup(curve, "g2")
+    jcodec = jax_batch_codec(curve, "g2")
+    data = b"".join(host.serialize(p, UseCompression.YES) for p in pts)
+    got = codec.read_batch(data, UseCompression.YES)
+    want = jcodec.read_batch(data, JUseCompression.YES)
+    for k in "xyz":
+        assert (planes_to_reference(got[k]) == np.asarray(want[k])).all(), k
+    if curve == "bls12_377":
+        for comp in ("YES", "NO"):
+            assert codec.write_batch(got, UseCompression[comp]) == jcodec.write_batch(
+                want, JUseCompression[comp])
 
 
 def test_checks_for_correctness():

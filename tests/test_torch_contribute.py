@@ -1,4 +1,4 @@
-"""The slice as a whole: `phase1 contribute` of the port on the CPU.
+"""The slices as a whole: `phase1 contribute` of the port on the CPU.
 
 - Groth16 on BW6-761 (power 2, batch 2, uncompressed challenge -> compressed
   response): the port's `Phase1.computation` output is byte-identical to the
@@ -6,12 +6,18 @@
 - Marlin on BW6-761: the port's output against the host oracle
   (Python-int curve arithmetic).
 - The port's CLI `new` + `contribute` against the port's protocol call.
+- The CLI with its default curve, BLS12-377 (G2 over Fp2): the response is
+  byte-identical to the JAX package's; a chunk equals the full response
+  slice for slice.
+- MNT4-753 and MNT6-753 (a != 0, G2 over Fp2 / Fp3; power 1, batch 4):
+  every point of every section against the host oracle.
 """
 
 import hashlib
 import os
 
 import pytest
+import torch
 
 from snark_setup_tpu.phase1.parameters import Phase1Parameters as JParams
 from snark_setup_tpu.phase1.protocol import Phase1 as JPhase1
@@ -25,6 +31,11 @@ from snark_setup_tpu_torch.phase1.protocol import Phase1 as TPhase1
 from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
 from snark_setup_tpu_torch.transcript.hashing import blank_hash, calculate_hash, derive_rng_from_seed
 from snark_setup_tpu_torch.utils import enums as te
+
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
 
 CURVE, POWER, BATCH = "bw6_761", 2, 2
 SEED = bytes(range(32))
@@ -79,8 +90,12 @@ def test_chunked_contribution_equals_the_full_one_slice_for_slice(groth16):
     """Chunk 1 of 2-element chunks, same key: every section of the chunk's
     response equals the matching element range of the full response."""
     full_params, _, key, full = groth16
+    _check_chunk(CURVE, full_params, key, full)
+
+
+def _check_chunk(curve, full_params, key, full):
     chunk_size, index = 2, 1
-    cp = TParams.new_chunk(CURVE, te.ContributionMode.CHUNKED, index, chunk_size,
+    cp = TParams.new_chunk(curve, te.ContributionMode.CHUNKED, index, chunk_size,
                            te.ProvingSystem.GROTH16, POWER, BATCH)
     challenge = _challenge(cp)
     out = bytearray(cp.contribution_size)
@@ -165,3 +180,74 @@ def test_cli_new_and_contribute_equal_protocol_call(marlin, tmp_path):
                              "--challenge-hash-fname", f("challenge.hash3"),
                              "--response-fname", f("response")]) == 1
     assert os.path.getsize(f("response")) == len(response)
+
+
+@pytest.fixture(scope="module")
+def default_curve_cli(tmp_path_factory):
+    """`new` + `contribute` through the port's CLI without --curve-kind
+    (BLS12-377), Groth16, power 2, batch 2, on the CPU."""
+    tmp = tmp_path_factory.mktemp("default_curve")
+    seed_file = tmp / "seed"
+    seed_file.write_text(SEED.hex())
+    common = ["--proving-system", "groth16", "--contribution-mode", "full",
+              "--power", str(POWER), "--batch-size", str(BATCH), "--device", "cpu"]
+    f = lambda name: str(tmp / name)
+    assert phase1_main.main([*common, "new", "--challenge-fname", f("challenge"),
+                             "--challenge-hash-fname", f("challenge.hash")]) == 0
+    assert phase1_main.main([*common, "--seed", str(seed_file), "contribute",
+                             "--challenge-fname", f("challenge"),
+                             "--challenge-hash-fname", f("challenge.hash2"),
+                             "--response-fname", f("response"),
+                             "--response-hash-fname", f("response.hash")]) == 0
+    with open(f("challenge"), "rb") as fh:
+        challenge = fh.read()
+    with open(f("response"), "rb") as fh:
+        response = fh.read()
+    params = TParams.new_full("bls12_377", te.ProvingSystem.GROTH16, POWER, BATCH)
+    _, key = TPhase1.key_generation(params.spec, derive_rng_from_seed(SEED), calculate_hash(challenge))
+    return params, challenge, response, key
+
+
+def test_default_curve_cli_response_byte_identical_to_jax_package(default_curve_cli):
+    params, challenge, response, _ = default_curve_cli
+    assert phase1_main.build_parser().parse_args(["new"]).curve_kind == "bls12_377"
+    assert response[:64] == hashlib.blake2b(challenge, digest_size=64).digest()
+    jp = JParams.new_full("bls12_377", je.ProvingSystem.GROTH16, POWER, BATCH)
+    j_pk, j_key = JPhase1.key_generation(jp.spec, j_rng(SEED), calculate_hash(challenge))
+    want = bytearray(jp.contribution_size)
+    JPhase1.computation(
+        challenge, want, je.UseCompression.NO, je.UseCompression.YES,
+        je.CheckForCorrectness.NO, je.BatchExpMode.AUTO, j_key, jp,
+    )
+    j_pk.write(want, je.UseCompression.YES, jp)
+    assert len(response) == len(want) and response[64:] == bytes(want[64:])
+    sec = split(params, te.UseCompression.YES)
+    assert any(sec["tau_g2"].slice_of(response, 1, 2))
+
+
+def test_default_curve_chunked_contribution_equals_the_full_one_slice_for_slice(default_curve_cli):
+    params, _, response, key = default_curve_cli
+    _check_chunk("bls12_377", params, key, response)
+
+
+@pytest.mark.parametrize("curve", ["mnt4_753", "mnt6_753"])
+def test_mnt_groth16_response_matches_host_oracle(curve):
+    """a != 0 on both groups: every scalar multiplication is the windowed
+    ladder over the complete addition (K5 rounds). One batch of 4 holds
+    every section at power 1: four ladder calls (batch 2 takes eight, each a
+    753-bit ladder of several seconds on the CPU)."""
+    params = TParams.new_full(curve, te.ProvingSystem.GROTH16, 1, 4)
+    key, out = _port_contribution(params, _challenge(params))
+    spec, r = params.spec, params.spec.r
+    sec = split(params, te.UseCompression.YES)
+    G1, G2 = g1_curve(spec), g2_curve(spec)
+    c1, c2 = g1_codec(spec), g2_codec(spec)
+    for name, codec, G, coeff in (("tau_g1", c1, G1, 1), ("tau_g2", c2, G2, 1),
+                                  ("alpha_g1", c1, G1, key.alpha), ("beta_g1", c1, G1, key.beta)):
+        for i in range(sec[name].num_elements):
+            got = codec.deserialize(bytes(sec[name].slice_of(out, i, i + 1)),
+                                    te.UseCompression.YES, te.CheckForCorrectness.NO)
+            assert got == G.mul(G.generator, pow(key.tau, i, r) * coeff % r), (name, i)
+    got = c2.deserialize(bytes(sec["beta_g2"].slice_of(out, 0, 1)), te.UseCompression.YES,
+                         te.CheckForCorrectness.NO)
+    assert got == G2.mul(G2.generator, key.beta)

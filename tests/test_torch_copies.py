@@ -8,6 +8,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import snark_setup_tpu.curves.constants as jconst
 import snark_setup_tpu.fields.limb as jlimb
@@ -24,12 +25,20 @@ import snark_setup_tpu_torch.serialize.arkworks as tark
 import snark_setup_tpu_torch.transcript.hashing as thash
 import snark_setup_tpu_torch.utils.enums as tenums
 
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
+
 CURVES = ["bw6_761", "bls12_377"]
+ALL_CURVES = CURVES + ["mnt4_753", "mnt6_753"]
 GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+EXT_OR_A_GROUPS = [("bls12_377", "g2"), ("mnt4_753", "g1"), ("mnt4_753", "g2"), ("mnt6_753", "g1"),
+                   ("mnt6_753", "g2")]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("curve", ALL_CURVES)
 def test_limb_arrays_equal(curve):
     js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
     rng = np.random.default_rng(1)
@@ -44,7 +53,7 @@ def test_limb_arrays_equal(curve):
     assert (ts.q, ts.r) == (js.q, js.r)
 
 
-@pytest.mark.parametrize("curve", CURVES)
+@pytest.mark.parametrize("curve", ALL_CURVES)
 def test_curve_constants_equal(curve):
     js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
     assert ts.name == js.name and ts.fp_bytes == js.fp_bytes
@@ -122,6 +131,66 @@ def test_rederived_device_constants_equal(curve, group):
             assert tt[0] == jt[0] and (tt[1] == jt[1]).all()
 
 
+@pytest.mark.parametrize("curve,group", EXT_OR_A_GROUPS)
+def test_rederived_tower_and_curve_constants_equal(curve, group):
+    """Tower non-residue, its expansion table and REDC bound, and a, b, 3b,
+    -a^2 for the groups with Fp2 / Fp3 coordinates or a != 0."""
+    from snark_setup_tpu.ops.curve_jax import curve_ops as jops_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops as tops_for
+
+    jops, tops = jops_for(curve, group), tops_for(curve, group)
+    jF, tF = jops.field, tops.field
+    assert (tF.degree, tF.prod_nprod) == (jF.degree, jF.prod_nprod)
+    if tF.degree > 1:
+        assert tF.nr == jF.nr and tF._tower_products() == jF._tower_products()
+    assert tops.a_is_zero == jops.a_is_zero and tops._b3_small == jops._b3_small
+    names = [("a_np", "a_dev"), ("b3_np", "b3_dev")] + ([] if tops.a_is_zero else [("neg_a2_np", "neg_a2_dev")])
+    for t_name, j_name in names:
+        assert (np.asarray(getattr(tops, t_name)) == np.asarray(getattr(jops, j_name))).all(), t_name
+    assert (tops.glv is None) == (jops.glv is None)
+    if tops.glv is not None:
+        from dataclasses import astuple
+
+        assert astuple(tops.glv.p) == astuple(jops.glv.p)
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "bw6_761", "mnt4_753", "mnt6_753"])
+def test_hash_to_g2_equals_reference(curve):
+    """The port's hash_to_g2 pre-filters candidates on their top bytes; the
+    point it returns is the reference's, candidate for candidate. On MNT6-753
+    (Fp3: two unflagged coefficients filtered before the flagged one) a
+    candidate survives the exact filter about once in 2^20, so the reference's
+    loop takes minutes on most digests: this digest's first valid candidate is
+    number 5741, in the reference's second chunk of 4096."""
+    import hashlib
+
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    if curve == "mnt6_753":
+        seeds = [(758).to_bytes(2, "little") + curve.encode()]
+    else:
+        seeds = [bytes([k]) + curve.encode() for k in range(2)]
+    for seed in seeds:
+        digest = hashlib.blake2b(seed, digest_size=64).digest()
+        jp, tp = jhash.hash_to_g2(js, digest), thash.hash_to_g2(ts, digest)
+        assert repr(tp.x) == repr(jp.x) and repr(tp.y) == repr(jp.y)
+
+
+def test_hostmath_copy_equals_reference():
+    import random
+
+    from snark_setup_tpu.ops import hostmath as jhm
+    from snark_setup_tpu_torch.ops import hostmath as thm
+
+    rng = random.Random(3)
+    for curve, d in (("bw6_761", 1), ("bls12_377", 2), ("mnt4_753", 2), ("mnt6_753", 3)):
+        spec = tconst.get_curve(curve)
+        q, nr = spec.q, (spec.ext_nonresidue if d > 1 else 0)
+        assert thm.host_ext_one(d) == jhm.host_ext_one(d)
+        for e in (0, 1, 2, 0xBEEF, q**d - 2):
+            c = tuple(rng.randrange(q) for _ in range(d))
+            assert thm.host_ext_pow(c, e, q, d, nr) == jhm.host_ext_pow(c, e, q, d, nr)
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "snark_setup_tpu_torch")):
@@ -159,8 +228,9 @@ def test_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        batch_codec("bw6_761", "g1")
+    for curve, group in (("bw6_761", "g1"), ("bls12_377", "g2"), ("mnt4_753", "g1"), ("mnt6_753", "g2")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            batch_codec(curve, group)
     from snark_setup_tpu_torch.ops import convert
 
     # the seam constructors default to the card as well
@@ -176,20 +246,30 @@ def test_entry_points_raise_without_a_card():
     pts = ops.infinity((2,), "cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.scalar_mul(ops, pts, torch.zeros((ops.fr.L, 2), dtype=torch.int32))
-    tp = tparams.Phase1Parameters.new_full("bw6_761", tenums.ProvingSystem.GROTH16, 2, 2)
+    for curve in ("bw6_761", "bls12_377", "mnt4_753", "mnt6_753"):
+        tp = tparams.Phase1Parameters.new_full(curve, tenums.ProvingSystem.GROTH16, 2, 2)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Phase1.computation(b"", bytearray(), tenums.UseCompression.NO, tenums.UseCompression.YES,
+                               tenums.CheckForCorrectness.NO, tenums.BatchExpMode.AUTO, None, tp)
+    g2 = curve_ops("mnt6_753", "g2")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Phase1.computation(b"", bytearray(), tenums.UseCompression.NO, tenums.UseCompression.YES,
-                           tenums.CheckForCorrectness.NO, tenums.BatchExpMode.AUTO, None, tp)
+        runtime.scalar_mul(g2, g2.infinity((2,), "cpu"), torch.zeros((g2.fr.L, 2), dtype=torch.int32))
     assert phase1_main.build_parser().parse_args(["new"]).device == "cuda"
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_unported_groups_and_commands_raise_not_implemented():
+    """Every group is ported now; the subgroup checks and the verification
+    subcommands are not."""
     from snark_setup_tpu_torch.cli import phase1_main
-    from snark_setup_tpu_torch.ops.curve import curve_ops
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.serialize.arkworks import g2_codec
 
+    codec = batch_codec("bls12_377", "g2", "cpu")
+    hc = codec.ops.host_curve
+    data = g2_codec(codec.spec).serialize(hc.mul(hc.generator, 5), tenums.UseCompression.NO)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        curve_ops("bls12_377", "g2")
+        codec.read_batch(data, tenums.UseCompression.NO, tenums.CheckForCorrectness.FULL)
     args = phase1_main.build_parser().parse_args(["--device", "cpu", "combine"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         phase1_main.execute(args)

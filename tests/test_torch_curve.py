@@ -16,7 +16,13 @@ from snark_setup_tpu_torch.curves.host import INFINITY as TINF
 from snark_setup_tpu_torch.ops import convert
 from snark_setup_tpu_torch.ops.convert import planes_to_reference, pointvec_to_reference
 from snark_setup_tpu_torch.ops.cuda_ladder import fused_ladder_for, glv_ladder_plain
+from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
 from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops as torch_curve_ops
+
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
 
 # the tests run on the CPU: every seam constructor is asked for it by name
 planes_from_reference = partial(convert.planes_from_reference, device="cpu")
@@ -169,10 +175,15 @@ def test_plain_ladder_equals_reference_schedule_truncated(curve, group):
     neg1 = np.array([0, 1, 1, 0], np.uint32)
     flip = np.array([0, 0, 1, 1], np.uint32)
     want = _reference_ladder(jops, pts, d1, d2, neg1, flip)
+    K = stacked_mul_for(tops.spec.q)
+    before = (K.launches, K.plain_calls)
     got = glv_ladder_plain(
         tops, pointvec_from_reference(pts), planes_from_reference(d1), planes_from_reference(d2),
         planes_from_reference(neg1), planes_from_reference(flip),
     )
+    # plain PyTorch throughout: every product is the stacked-product
+    # wrapper's counted plain version, never a launch
+    assert K.launches == before[0] and K.plain_calls > before[1]
     for k in "xyz":
         assert (planes_to_reference(got[k]) == want[k]).all(), k
     # and the value is the right group element

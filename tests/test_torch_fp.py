@@ -14,6 +14,11 @@ from snark_setup_tpu_torch.ops import convert
 from snark_setup_tpu_torch.ops.convert import planes_to_reference
 from snark_setup_tpu_torch.ops.fp import fp_ops as torch_fp_ops
 
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
+
 # the tests run on the CPU: every seam constructor is asked for it by name
 planes_from_reference = partial(convert.planes_from_reference, device="cpu")
 

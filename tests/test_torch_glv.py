@@ -17,6 +17,11 @@ from snark_setup_tpu_torch.ops.convert import planes_to_reference
 from snark_setup_tpu_torch.ops.cuda_glv import GLVDigits, glv_digits_for, glv_digits_plain
 from snark_setup_tpu_torch.ops.curve import curve_ops as torch_curve_ops
 
+# The suite runs several pytest workers on one host: PyTorch's intra-op
+# thread pool in each would oversubscribe the cores, and its idle threads'
+# spinning slows the plain versions' small operators by orders of magnitude.
+torch.set_num_threads(1)
+
 # the tests run on the CPU: every seam constructor is asked for it by name
 planes_from_reference = partial(convert.planes_from_reference, device="cpu")
 

@@ -1,4 +1,4 @@
-"""The two CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need an NVIDIA GPU and nvcc: they are marked `gpu`, decide inside
 the test whether a card is present, and skip without one. Run them on the
@@ -59,3 +59,51 @@ def test_kernels_equal_plain_versions_on_the_card(curve, group):
         src = base[lane % 8]
         want = INFINITY if src.is_infinity else hc.mul(hc.double(src), ks[lane])
         assert pt == want, lane
+
+
+# the stacked-product kernel K5 at the group law's shapes: (curve, group whose
+# coordinate field it multiplies in, curve-level weights)
+STACKED = [
+    ("bls12_377", "g2", ((1, 0, 0), (0, 1, 0), (0, 0, 1))),
+    ("bls12_377", "g1", ((1, 2, 0), (0, 0, 3))),
+    ("mnt4_753", "g2", ((1, 1, 0), (0, 0, 2))),
+    ("mnt6_753", "g2", ((1, 1, 0), (0, 1, 1))),
+    ("bw6_761", "g1", ((1, 1, 1, 1),)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,group,weights", STACKED)
+def test_stacked_mul_kernel_equals_plain_version_on_the_card(curve, group, weights):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.fields.limb import int_to_limbs
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for, stacked_mul_plain
+
+    dev = torch.device("cuda")
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    if F.degree == 1:
+        comp, rows = weights, (tuple(range(S)),) * 2 + ((0,) * S,)
+    else:
+        comp, rows = F._flattened(weights, S)
+    rng = np.random.default_rng(9)
+    B = 257  # not a multiple of the block
+
+    def planes():
+        a = rng.integers(0, 1 << 16, size=(fq.L, F.degree * S, B), dtype=np.int64)
+        a[-1] = rng.integers(0, int(fq.N[-1, 0]), size=a.shape[1:])
+        for lane, v in enumerate((0, 1, fq.modulus - 1)):
+            a[:, :, lane] = int_to_limbs(v, fq.L).astype(np.int64)[:, None]
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    U, V = planes(), planes()
+    K = stacked_mul_for(fq.modulus)
+    n = K.launches
+    got = K(U, V, comp, rows)
+    torch.cuda.synchronize()
+    assert K.launches == n + 1
+    want = stacked_mul_plain(fq, *K.gather(U, V, rows), comp)
+    assert torch.equal(got, want)
+    assert torch.equal(K(*K.gather(U, V, rows), comp), want)
