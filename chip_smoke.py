@@ -10,11 +10,14 @@ each kernel against its plain PyTorch version on the card (exact equality —
 this is modular arithmetic, tolerance 0), drives the port's main paths
 through the port's CLI entry point — `phase1 new` + `phase1 contribute` on
 BW6-761 (plus the batch scalar-mul on BLS12-377 G1 and BW6-761 G1), on
-BLS12-377 (the CLI's default curve), on MNT4-753 and on MNT6-753 — and checks
-the results against the host oracle (Python-int curve arithmetic). Each path
-runs with every kernel's launch count set to 0 just before it and read just
-after; every kernel must have launched on its path, and no plain version may
-have run there.
+BLS12-377 (the CLI's default curve), on MNT4-753 and on MNT6-753, then the
+coordinator's side: `verify-and-transform-pok-and-correctness` and
+`verify-and-transform-ratios` on the BW6-761 contribution (plus three bad
+responses that must be rejected by the named check) and on a BLS12-377 one —
+and checks the results against the host oracle (Python-int curve arithmetic
+and the host codec). Each path runs with every kernel's launch count set to 0
+just before it and read just after; every kernel must have launched on its
+path, and no plain version may have run there.
 
 Each phase prints one JSON line. Near the end it prints one
 `{"kernels": [...]}` line with, per kernel and configuration: the launches
@@ -35,9 +38,10 @@ batched multi-word Montgomery product has none), so `library_ms` is null. The la
 
 With `--sweep` it also times the ladder kernel at batch 2^12 .. 2^17 (how far
 one thread per lane fills the card at the batch sizes a ceremony uses).
-`--power` sets the size of the BW6-761 and BLS12-377 contribute phases
-(default 16); the MNT phases run at MNT_POWER (14), one full batch per G2
-section.
+`--power` sets the size of the BW6-761 and BLS12-377 contribute phases and of
+the BW6-761 verify path (default 16); the MNT phases run at MNT_POWER (14),
+one full batch per G2 section, the BLS12-377 verify path at BLS_VERIFY_POWER
+(14).
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -47,6 +51,7 @@ exits with code 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -60,8 +65,9 @@ IMAD_PER_S = 16.75e12
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
+BLS_VERIFY_POWER = 14  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds)
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
-CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))
+CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))  # K2, K3, K4
 DIGITS_ONLY = (("bls12_377", "g2"),)  # K3 feeds the ladder over the group law there
 # the stacked-product kernel K5 at the main paths' shapes: (curve, group whose
 # coordinate field it multiplies in, round, curve-level weights)
@@ -352,6 +358,176 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
     return rows
 
 
+def group_inputs(ops, B: int, rng, dev):
+    """Seeded operands of K2 for one group: affine (Z = 1) batches P, Q and
+    their doubles 2P, 2Q (Z != 1, made by the plain group law). Lane 0 of P
+    and lane 1 of Q are infinity, lane 2 of Q equals P and lane 3 of Q is
+    -P: O + Q, P + O, P + P and P + (-P)."""
+    import torch
+
+    from snark_setup_tpu_torch.curves.host import INFINITY
+    from snark_setup_tpu_torch.ops.curve import PointVec, plain_group_law
+
+    hc = ops.host_curve
+    base = [hc.mul(hc.generator, int(k)) for k in rng.integers(1, 1 << 30, 16)]
+    base[0] = INFINITY
+    table = ops.from_affine_host(base, dev)
+    ip = torch.from_numpy(rng.integers(1, 16, B)).to(dev)
+    iq = torch.from_numpy(rng.integers(1, 16, B)).to(dev)
+    ip[0], iq[1], iq[2] = 0, 0, ip[2]
+    P = PointVec({k: v[:, ip].contiguous() for k, v in table.items()})
+    Q = PointVec({k: v[:, iq].contiguous() for k, v in table.items()})
+    Q["y"][:, 3] = ops.fq.neg(P["y"][:, 3:4])[:, 0]
+    Q["x"][:, 3], Q["z"][:, 3] = P["x"][:, 3], P["z"][:, 3]
+    plain = plain_group_law(ops)
+    return P, Q, plain.double(P), plain.double(Q)
+
+
+def group_work(ops, kind: str, B: int) -> tuple[int, int]:
+    """Bytes (coordinate planes in once, three out once; int32 words of
+    16-bit limbs) and 32x32->64-bit multiply-adds of one K2 launch: a
+    product is 2 NL^2 (product + reduction), a shared-reduction pair 3 NL^2;
+    a doubling is 8 products, an addition 6 products + 3 pairs."""
+    L = ops.fq.L
+    NL = L // 2
+    planes = 6 if kind == "dbl" else 9
+    return 4 * L * B * planes, B * (16 if kind == "dbl" else 21) * NL * NL
+
+
+def verify_shape_diffs(ops, k2, plain, P, Q, rng, dev, batch: int) -> dict:
+    """K2 (through CurveOps, as the verify path calls it) against the plain
+    group law at the verify path's own operand shapes; max |difference| per
+    shape:
+
+    - `subset_views`: the first level of the batched subgroup check's tree
+      reduction, lanes 2i + 2i+1 of a (64, batch + 1) masked batch as the
+      strided even / odd views `sum_reduce` passes;
+    - `subset_sums`: the whole `sum_reduce` of that batch (every level, the
+      odd tail carried up), held on 2 of its 64 rounds;
+    - `pippenger_step`: a gathered (nwin, G) bucket row plus a point row
+      expanded over the windows, y negated by the digit signs;
+    - `pippenger_merge`: the first lane-merge level, two strided halves of
+      the (nwin, nb, G) buckets;
+    - `pippenger_finalize`: a bucket column of every window (nwin strided
+      lanes) added to a running sum.
+
+    The plain version runs in row slices: its product table takes ~0.23 MB
+    a lane on BW6-761."""
+    import torch
+
+    from snark_setup_tpu_torch.ops.curve import PointVec
+    from snark_setup_tpu_torch.ops.msm import RLC_BITS
+    from snark_setup_tpu_torch.ops.pippenger import PippengerMSM
+
+    def diff(a, b):
+        return max(max_abs_diff(a[k], b[k]) for k in "xyz")
+
+    def rows(p, lo, hi):
+        return PointVec({k: v[:, lo:hi] for k, v in p.items()})
+
+    def gather(nwin, nb, G):  # random points of P as a (nwin, nb, G) batch
+        return PointVec({k: v[:, torch.from_numpy(rng.integers(0, batch, (nwin, nb, G))).to(dev)]
+                         for k, v in P.items()})
+
+    out = {}
+    n = batch + 1
+    pts = PointVec({k: torch.cat([P[k], Q[k][:, :1]], dim=-1) for k in "xyz"})
+    bits = torch.from_numpy(rng.integers(0, 2, (64, n)).astype(bool)).to(dev)
+    inf = ops.infinity((1, 1), dev)
+    masked = PointVec({k: ops.field.select(bits, pts[k].unsqueeze(-2), inf[k]) for k in "xyz"})
+    half = n // 2
+    even = PointVec({k: v[..., 0 : 2 * half : 2] for k, v in masked.items()})
+    odd = PointVec({k: v[..., 1 : 2 * half : 2] for k, v in masked.items()})
+    got = ops.add(even, odd)
+    out["subset_views"] = max(diff(rows(got, r, r + 1), plain.add(rows(even, r, r + 1), rows(odd, r, r + 1)))
+                              for r in range(64))
+    got = ops.sum_reduce(masked)
+    out["subset_sums"] = diff(rows(got, 0, 2), plain.sum_reduce(rows(masked, 0, 2)))
+
+    msm = PippengerMSM(ops, batch, RLC_BITS)
+    nwin, nb, G = msm.nwin, msm.nb, msm.G
+    buckets = gather(nwin, nb, G)
+    ix = torch.from_numpy(rng.integers(0, nb, (nwin, 1, G))).to(dev)
+    row = PointVec({k: torch.gather(v, 2, ix.unsqueeze(0).expand(ops.fq.L, -1, -1, -1)).squeeze(2)
+                    for k, v in buckets.items()})
+    pt = PointVec({k: v[:, :G].unsqueeze(-2).expand(ops.fq.L, nwin, G) for k, v in Q.items()})
+    neg = torch.from_numpy(rng.integers(0, 2, (nwin, G)).astype(bool)).to(dev)
+    pt["y"] = ops.field.select(neg, ops.field.neg(pt["y"]), pt["y"])
+    out["pippenger_step"] = diff(ops.add(row, pt), plain.add(row, pt))
+    h = G // 2
+    lo = PointVec({k: v[..., :h] for k, v in buckets.items()})
+    hi = PointVec({k: v[..., h:G] for k, v in buckets.items()})
+    got = ops.add(lo, hi)
+    out["pippenger_merge"] = max(diff(rows(got, w, w + 1), plain.add(rows(lo, w, w + 1), rows(hi, w, w + 1)))
+                                 for w in range(nwin))
+    col = PointVec({k: v[..., nb - 1, 0] for k, v in buckets.items()})
+    acc = PointVec({k: v[:, :nwin] for k, v in Q.items()})
+    out["pippenger_finalize"] = diff(ops.add(acc, col), plain.add(acc, col))
+    torch.cuda.synchronize()
+    return out
+
+
+def compare_group_ops(dev, batch: int) -> list[dict]:
+    """K2 against its plain version (the stacked group law over K5's plain
+    product) per group: a ragged batch with the edge cases, affine and
+    projective operands and a batch-1 second operand, then the main path's
+    batch with timings."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.cuda_group import group_ops_for
+    from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops, plain_group_law
+
+    rows = []
+    for ci, (curve, group) in enumerate(CONFIGS):
+        ops = curve_ops(curve, group)
+        k2, plain = group_ops_for(curve, group), plain_group_law(ops)
+        rng = np.random.default_rng(SEED + 600 + ci)
+        errs = {"dbl": 0, "add": 0}
+
+        def diff(a, b):
+            return max(max_abs_diff(a[k], b[k]) for k in "xyz")
+
+        for B in (RAGGED, batch):
+            P, Q, P2, Q2 = group_inputs(ops, B, rng, dev)
+            for p in (P, P2):
+                errs["dbl"] = max(errs["dbl"], diff(k2.double(p), plain.double(p)))
+            q1 = PointVec({k: v[:, 5:6] for k, v in Q2.items()})
+            for p, q in ((P, Q), (P2, Q2), (P, Q2), (P2, q1)):
+                errs["add"] = max(errs["add"], diff(k2.add(p, q), plain.add(p, q)))
+            torch.cuda.synchronize()
+            if any(errs.values()):
+                raise AssertionError(f"group ops {curve} {group} B={B}: kernel differs from plain version: {errs}")
+        path_errs = verify_shape_diffs(ops, k2, plain, P2, Q2, rng, dev, batch)
+        errs["add"] = max(errs["add"], *path_errs.values())
+        if errs["add"]:
+            raise AssertionError(f"group ops {curve} {group}: kernel differs from plain version "
+                                 f"at the verify path's shapes: {path_errs}")
+        times = {}
+        for kind, kern, pl in (("dbl", lambda: k2.double(P2), lambda: plain.double(P2)),
+                               ("add", lambda: k2.add(P2, Q2), lambda: plain.add(P2, Q2))):
+            times[kind] = event_ms(kern, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pl()
+            torch.cuda.synchronize()
+            times[kind + "_plain"] = (time.perf_counter() - t0) * 1e3
+        for kind, counter in (("dbl", k2.dbl), ("add", k2.add_k)):
+            b_ms, b_by = bound(*group_work(ops, kind, batch))
+            name = f"group_{kind}[{curve}/{group}]"
+            rows.append({
+                "name": name, "route": "cuda", "source": "snark_setup_tpu_torch/ops/csrc/group_ops.cu",
+                "replaces": "snark_setup_tpu/ops/pallas_group.py:149", "launches": 0,
+                "max_abs_err": errs[kind], "ms": times[kind], "plain_ms": times[kind + "_plain"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "batch": batch,
+                "_wrapper": counter, "_path": f"{curve} verify", "_label": name,
+            })
+        emit({"phase": "kernels", "config": f"group_ops {curve}/{group}", "batch": batch,
+              "ragged_batch": RAGGED, "edge_cases": ["O+Q", "P+O", "P+P", "P+(-P)", "Z!=1", "batch-1 q"],
+              "verify_shapes": sorted(path_errs), "equal": True, "ms": times})
+    return rows
+
+
 def scalar_mul_phase(dev, batch: int) -> None:
     """Phase 4: the batch scalar-mul entry point with host-oracle spot checks."""
     import numpy as np
@@ -421,11 +597,12 @@ def check_response(params, key, challenge: bytes, response: bytes, rng, label: s
 
 
 def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
-                     contributions: int = 1, picks: int = 6) -> None:
+                     contributions: int = 1, picks: int = 6, workdir: str | None = None) -> None:
     """`new` + `contribute` through the port's CLI on `curve`, checked
     against the host oracle; with `contributions=2` a second `contribute` on a
     non-trivial accumulator. `wrappers` maps a label to each kernel wrapper
-    whose time inside the contribution is summed from CUDA events."""
+    whose time inside the contribution is summed from CUDA events. The files
+    (challenge1, response1, seed1, ...) stay in `workdir` where one is given."""
     import numpy as np
     import torch
 
@@ -446,7 +623,8 @@ def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
     for w in wrappers.values():
         w.events = []
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+    keep = contextlib.nullcontext(workdir) if workdir else tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    with keep as tmp:
         path = lambda name: os.path.join(tmp, name)
         seeds = {}
         for tag in ("1", "2"):
@@ -512,6 +690,205 @@ def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
         emit({"phase": "contribute", "curve": curve, "step": "new", "seconds": t_new})
     for w in wrappers.values():
         w.events = None
+
+
+def out_of_subgroup_g1(spec):
+    """The smallest-x point of G1's curve outside the order-r subgroup
+    (found as tests/test_subgroup.py finds it)."""
+    from snark_setup_tpu_torch.curves.host import g1_curve
+
+    hc = g1_curve(spec)
+    for x in range(1, 2000):
+        p = hc.get_point_from_x(spec.fp(x), greatest=False)
+        if p is not None and not hc.in_subgroup(p):
+            return p
+    raise AssertionError("no out-of-subgroup point found")
+
+
+def verify_phase(dev, curve: str, power: int, batch: int, workdir: str, rejections: tuple,
+                 wrappers: dict, picks: int = 16) -> None:
+    """The coordinator's side through the port's CLI, on the challenge1 /
+    response1 that `contribute_phase` left in `workdir`:
+    `verify-and-transform-pok-and-correctness` with the default checks
+    (FULL output check, AUTO subgroup mode) must accept, the new challenge
+    must carry the hash chain and hold, at the first, the last and `picks`
+    random indices of every section, the response's points decoded and
+    re-encoded uncompressed by the host codec; `verify-and-transform-ratios`
+    on the new challenge must accept. Then each of `rejections` — a bad
+    response, built from response1 — must be rejected with a
+    VerificationFailedError whose cause is the named check's exception."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.cli import phase1_main
+    from snark_setup_tpu_torch.phase1.buffers import split
+    from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+    from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
+    from snark_setup_tpu_torch.utils.errors import (
+        IncorrectSubgroupError, InvalidRatioError, VerificationFailedError,
+    )
+
+    common = ["--curve-kind", curve, "--proving-system", "groth16", "--contribution-mode",
+              "full", "--power", str(power), "--batch-size", str(batch), "--device", dev.type]
+    params = Phase1Parameters.new_full(curve, ProvingSystem.GROTH16, power, batch)
+    spec = params.spec
+    path = lambda name: os.path.join(workdir, name)
+    blake = lambda data: hashlib.blake2b(data, digest_size=64).digest()
+
+    def read(name) -> bytes:
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    def cli(*args) -> float:
+        t0 = time.perf_counter()
+        phase1_main.execute(phase1_main.build_parser().parse_args([*common, *args]))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def verify(response: str, new: str, *extra) -> float:
+        return cli(*extra, "verify-and-transform-pok-and-correctness",
+                   "--challenge-fname", path("challenge1"),
+                   "--challenge-hash-fname", path(f"{new}.challenge.verified.hash"),
+                   "--response-fname", path(response),
+                   "--response-hash-fname", path(f"{new}.response.verified.hash"),
+                   "--new-challenge-fname", path(new),
+                   "--new-challenge-hash-fname", path(f"{new}.verified.hash"))
+
+    for w in wrappers.values():
+        w.events = []
+    secs = verify("response1", "new_challenge1")
+    kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items()}
+    challenge, response, new = read("challenge1"), read("response1"), read("new_challenge1")
+    hashes_ok = (
+        new[:64] == blake(response)
+        and read("new_challenge1.challenge.verified.hash") == blake(challenge)
+        and read("new_challenge1.response.verified.hash") == blake(response)
+        and read("new_challenge1.verified.hash") == blake(new)
+    )
+    if not hashes_ok:
+        raise AssertionError(f"{curve} verify: hash chain or .hash files wrong")
+    # host spot checks: new challenge point == response point re-encoded
+    rng = np.random.default_rng(SEED + 700)
+    s_resp, s_new = split(params, UseCompression.YES), split(params, UseCompression.NO)
+    checked = 0
+    for name, codec in (("tau_g1", g1_codec(spec)), ("tau_g2", g2_codec(spec)), ("alpha_g1", g1_codec(spec)),
+                        ("beta_g1", g1_codec(spec)), ("beta_g2", g2_codec(spec))):
+        n = s_resp[name].num_elements
+        for i in sorted({0, n - 1, *(int(i) for i in rng.integers(0, n, picks))}):
+            p = codec.deserialize(bytes(s_resp[name].slice_of(response, i, i + 1)),
+                                  UseCompression.YES, CheckForCorrectness.NO)
+            if bytes(s_new[name].slice_of(new, i, i + 1)) != codec.serialize(p, UseCompression.NO):
+                raise AssertionError(f"{curve} verify: new challenge {name}[{i}] differs from the host codec")
+            checked += 1
+    n_points = sum(s.num_elements for s in s_resp.values())
+    for w in wrappers.values():
+        w.events = None
+    t_ratios = cli("verify-and-transform-ratios", "--response-fname", path("new_challenge1"))
+    emit({"phase": "verify", "curve": curve, "power": power, "batch_size": batch, "points": n_points,
+          "response_bytes": len(response), "wall_seconds": secs, "points_per_s": n_points / secs,
+          "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3,
+          "hash_chain_ok": True, "host_points_checked": checked, "ratios_wall_seconds": t_ratios,
+          "ratios_points_per_s": n_points / t_ratios})
+
+    # the bad responses, each rejected by the check it targets
+    comp1 = g1_codec(spec)
+    size = s_resp["tau_g1"].element_size
+    expected = {
+        "swap": (InvalidRatioError, "Power pairs tau_g1"),
+        "out_of_subgroup": (IncorrectSubgroupError, "batched subgroup check failed"),
+        "out_of_subgroup_direct": (IncorrectSubgroupError, "element not in prime-order subgroup"),
+    }
+    for kind in rejections:
+        bad = bytearray(response)
+        sec = s_resp["tau_g1"]
+        if kind == "swap":
+            i = min(100, sec.num_elements - 2)
+            a = bytes(sec.slice_of(bad, i, i + 1))
+            sec.slice_of(bad, i, i + 1)[:] = bytes(sec.slice_of(bad, i + 1, i + 2))
+            sec.slice_of(bad, i + 1, i + 2)[:] = a
+        else:
+            j = min(200, sec.num_elements - 1)
+            pt = comp1.serialize(out_of_subgroup_g1(spec), UseCompression.YES)
+            assert len(pt) == size
+            sec.slice_of(bad, j, j + 1)[:] = pt
+        with open(path(f"bad_{kind}"), "wb") as f:
+            f.write(bad)
+        extra = ("--subgroup-check-mode", "direct") if kind == "out_of_subgroup_direct" else ()
+        cls, words = expected[kind]
+        t0 = time.perf_counter()
+        try:
+            verify(f"bad_{kind}", f"bad_new_{kind}", *extra)
+        except VerificationFailedError as e:
+            cause = e.__cause__
+            if not isinstance(cause, cls) or words not in str(cause):
+                raise AssertionError(f"{curve} {kind}: rejected by {type(cause).__name__}: {cause}") from e
+        else:
+            raise AssertionError(f"{curve} {kind}: the bad response was accepted")
+        emit({"phase": "verify", "curve": curve, "rejection": kind, "rejected": True,
+              "cause": f"{type(cause).__name__}: {cause}", "seconds": time.perf_counter() - t0})
+
+
+def verify_breakdown_phase(dev, power: int, batch: int, workdir: str) -> None:
+    """One batch of the BW6-761 verify loop (tau_g1[0 : batch + 1] of the
+    path's response), stage by stage, each ended with a synchronize."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.curves.pairing import pairing_engine
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.msm import rlc_scalars_padded
+    from snark_setup_tpu_torch.phase1.buffers import split
+    from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+    from snark_setup_tpu_torch.phase1.protocol import (
+        SUBGROUP_BATCH_ROUNDS, _batched_subgroup_sums, _power_pairs_finish, _power_pairs_start,
+    )
+    from snark_setup_tpu_torch.serialize.arkworks import g2_codec
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
+
+    params = Phase1Parameters.new_full("bw6_761", ProvingSystem.GROTH16, power, batch)
+    spec = params.spec
+    with open(os.path.join(workdir, "response1"), "rb") as f:
+        response = f.read()
+    sec = split(params, UseCompression.YES)
+    n = batch + 1
+    data = bytes(sec["tau_g1"].slice_of(response, 0, n))
+    h2 = g2_codec(spec)
+    g2_check = tuple(h2.deserialize(bytes(sec["tau_g2"].slice_of(response, i, i + 1)), UseCompression.YES,
+                                    CheckForCorrectness.NO) for i in (0, 1))
+    codec = batch_codec("bw6_761", "g1", dev)
+    ops = codec.ops
+    eng = pairing_engine("bw6_761")
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    pts = timed("read_batch: host parse + decompression (sqrt, plain torch)",
+                lambda: codec.read_batch(data, UseCompression.YES, CheckForCorrectness.ONLY_NON_ZERO))
+    bits = (np.frombuffer(np.random.default_rng(SEED + 710).bytes(SUBGROUP_BATCH_ROUNDS * n), np.uint8)
+            .reshape(SUBGROUP_BATCH_ROUNDS, n) & 1).astype(bool)
+    sums = timed("subgroup: 64 random-subset sums (K2 tree)", lambda: _batched_subgroup_sums(ops, pts, bits))
+    ok = timed("subgroup: Direct check [r]Q == O of the 64 sums (K2 ladder)",
+               lambda: bool((codec.subgroup_mask(sums) | ops.is_infinity(sums)).all()))
+    if not ok:
+        raise AssertionError("verify breakdown: the batch failed its subgroup check")
+    scalars = rlc_scalars_padded(n - 1, n - 1, rng=random.Random(SEED))
+    pp = timed("power pairs: two Pippenger MSMs (K2)", lambda: _power_pairs_start(ops, pts, scalars))
+    s_pt, sx_pt = timed("power pairs: to host affine", lambda: _power_pairs_finish(ops, pp))
+    timed("host pairing check (check_same_ratio)",
+          lambda: eng.check_same_ratio((s_pt, sx_pt), g2_check, "Power pairs tau_g1"))
+    timed("write-back: from_mont + flags + copy + byte packing",
+          lambda: codec.write_batch(pts, UseCompression.NO, normalized=True))
+    emit({"phase": "breakdown", "config": "bw6_761 verify batch (tau_g1)", "batch": n, "seconds": stages,
+          "total_seconds": sum(stages.values())})
 
 
 def breakdown_phase(dev, batch: int) -> None:
@@ -697,26 +1074,41 @@ def main() -> int:
           "ptxas": {t: [l.strip() for l in log.splitlines() if "registers" in l or "stack frame" in l][:4]
                     for t, log in build.build_logs.items()}})
 
-    with torch.no_grad():
-        rows = compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH)
+    with torch.no_grad(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        rows = compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_group_ops(dev, BATCH)
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
         wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
 
         def labelled(curve):
             """The wrappers whose kernels a contribution on `curve` launches."""
-            return {r["_label"]: r["_wrapper"] for r in rows if curve in r["_label"]}
+            return {r["_label"]: r["_wrapper"] for r in rows
+                    if curve in r["_label"] and not r["_path"].endswith("verify")}
 
+        def on_path(path, *also):
+            """The wrappers of a verify path's rows (and of the `also` rows)."""
+            return {r["_label"]: r["_wrapper"] for r in rows if r["_path"] in (path, *also)}
+
+        bw6_dir, bls_dir = os.path.join(work, "bw6_761"), os.path.join(work, "bls12_377")
+        os.makedirs(bw6_dir)
+        os.makedirs(bls_dir)
         # the main paths: every count to 0 just before each, read just after
         paths = (
             ("bw6_761", lambda: (scalar_mul_phase(dev, BATCH),
                                  contribute_phase(dev, "bw6_761", args.power, BATCH, labelled("bw6_761"),
-                                                  contributions=2))),
+                                                  contributions=2, workdir=bw6_dir))),
             ("bls12_377", lambda: contribute_phase(dev, "bls12_377", args.power, BATCH,
                                                    labelled("bls12_377"))),
             ("mnt4_753", lambda: contribute_phase(dev, "mnt4_753", MNT_POWER, BATCH,
                                                   labelled("mnt4_753"), picks=2)),
             ("mnt6_753", lambda: contribute_phase(dev, "mnt6_753", MNT_POWER, BATCH,
                                                   labelled("mnt6_753"), picks=2)),
+            ("bw6_761 verify", lambda: verify_phase(
+                dev, "bw6_761", args.power, BATCH, bw6_dir,
+                ("swap", "out_of_subgroup", "out_of_subgroup_direct"), on_path("bw6_761 verify"))),
+            ("bls12_377 verify", lambda: (
+                contribute_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, {}, picks=2, workdir=bls_dir),
+                verify_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, bls_dir, ("swap",),
+                             on_path("bls12_377 verify", "bls12_377")))),
         )
         for curve, run in paths:
             for w in wrappers:
@@ -741,6 +1133,7 @@ def main() -> int:
             r["max_abs_diff"] = r["max_abs_err"]  # the name the repo's records use
         breakdown_phase(dev, BATCH)
         g2_breakdown_phase(dev, BATCH)
+        verify_breakdown_phase(dev, args.power, BATCH, bw6_dir)
         if args.sweep:
             sweep_phase(dev)
 

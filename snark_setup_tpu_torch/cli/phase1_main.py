@@ -5,9 +5,6 @@ Mirrors phase1-cli/src/bin/phase1.rs:36-152 and the Phase1Opts flag set
 names, plus `--device` (default `cuda`; without a card that is an error
 unless `--device cpu` is given). Run as
 `python -m snark_setup_tpu_torch.cli.phase1_main ...`.
-
-Ported subcommands: `new`, `contribute`, `beacon`. The others are registered
-with their flags and exit with a "not ported yet" error.
 """
 
 from __future__ import annotations
@@ -35,13 +32,8 @@ logger = get_logger("snark_setup_tpu_torch.cli.phase1")
 # Correctness-check policy defaults (setup-utils/src/lib.rs consts;
 # SURVEY C16): contribute-input=No, verify-input=No, verify-output=Full.
 DEFAULT_CONTRIBUTE_CHECK_INPUT_CORRECTNESS = CheckForCorrectness.NO
-
-NOT_PORTED = (
-    "verify-and-transform-pok-and-correctness",
-    "verify-and-transform-ratios",
-    "combine",
-    "split",
-)
+DEFAULT_VERIFY_CHECK_INPUT_CORRECTNESS = CheckForCorrectness.NO
+DEFAULT_VERIFY_CHECK_OUTPUT_CORRECTNESS = CheckForCorrectness.FULL
 
 DEFAULT_BEACON_HASH = "0000000000000000000a558a61ddc8ee4e488d647a747fe4dcc362fe2026c620"
 
@@ -101,11 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def execute(args: argparse.Namespace) -> None:
-    if args.command in NOT_PORTED:
-        raise NotImplementedError(
-            f"`{args.command}` is not ported yet to the PyTorch/CUDA package "
-            "(see ROADMAP.md Queue A); the JAX package's CLI has it"
-        )
     parameters = Phase1Parameters.new_chunk(
         args.curve_kind,
         ContributionMode(args.contribution_mode),
@@ -116,6 +103,8 @@ def execute(args: argparse.Namespace) -> None:
         args.batch_size,
     )
     t0 = time.time()
+    # `new` is host-only; every other command runs on the chosen device
+    device = None if args.command == "new" else resolve_device(args.device)
 
     if args.command == "new":
         phase1_cmds.new_challenge(args.challenge_fname, args.challenge_hash_fname, parameters)
@@ -141,8 +130,40 @@ def execute(args: argparse.Namespace) -> None:
             BatchExpMode(args.batch_exp_mode),
             parameters,
             rng,
-            device=resolve_device(args.device),
+            device=device,
         )
+    elif args.command == "verify-and-transform-pok-and-correctness":
+        phase1_cmds.transform_pok_and_correctness(
+            args.challenge_fname,
+            args.challenge_hash_fname,
+            upgrade_correctness_check_config(
+                DEFAULT_VERIFY_CHECK_INPUT_CORRECTNESS, args.force_correctness_checks
+            ),
+            args.response_fname,
+            args.response_hash_fname,
+            upgrade_correctness_check_config(
+                DEFAULT_VERIFY_CHECK_OUTPUT_CORRECTNESS, args.force_correctness_checks
+            ),
+            args.new_challenge_fname,
+            args.new_challenge_hash_fname,
+            SubgroupCheckMode(args.subgroup_check_mode),
+            not args.skip_ratio_check,
+            parameters,
+            device=device,
+        )
+    elif args.command == "verify-and-transform-ratios":
+        phase1_cmds.transform_ratios(
+            args.response_fname,
+            upgrade_correctness_check_config(
+                DEFAULT_VERIFY_CHECK_INPUT_CORRECTNESS, args.force_correctness_checks
+            ),
+            parameters,
+            device=device,
+        )
+    elif args.command == "combine":
+        phase1_cmds.combine(args.response_list_fname, args.combined_fname, parameters, device=device)
+    elif args.command == "split":
+        phase1_cmds.split(args.chunk_fname_prefix, args.full_fname, parameters, device=device)
     else:  # pragma: no cover
         raise SystemExit(2)
 

@@ -26,14 +26,17 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# library name -> (source file, extra defines). The ladder and the stacked
-# product are instantiated once per limb count (NL 32-bit limbs = L/2:
-# 12 for BLS12-377/381's Fq, 24 for BW6-761's and the MNT curves'):
-# separate libraries build in parallel and keep each compilation unit small.
+# library name -> (source file, extra defines). The ladder, the group
+# operations and the stacked product are instantiated once per limb count
+# (NL 32-bit limbs = L/2: 12 for BLS12-377/381's Fq, 24 for BW6-761's and
+# the MNT curves'): separate libraries build in parallel and keep each
+# compilation unit small.
 TARGETS = {
     "glv_digits": ("glv_digits.cu", []),
     "glv_ladder_nl12": ("glv_ladder.cu", ["-DNL=12"]),
     "glv_ladder_nl24": ("glv_ladder.cu", ["-DNL=24"]),
+    "group_ops_nl12": ("group_ops.cu", ["-DNL=12"]),
+    "group_ops_nl24": ("group_ops.cu", ["-DNL=24"]),
     "stacked_mul_nl12": ("stacked_mul.cu", ["-DNL=12"]),
     "stacked_mul_nl24": ("stacked_mul.cu", ["-DNL=24"]),
 }

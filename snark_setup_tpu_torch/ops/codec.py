@@ -21,7 +21,7 @@ import torch
 from ..fields.limb import int_to_limbs
 from ..utils.device import resolve_device
 from ..utils.enums import CheckForCorrectness, SubgroupCheckMode, UseCompression
-from ..utils.errors import PointAtInfinityError, SerializationError
+from ..utils.errors import IncorrectSubgroupError, PointAtInfinityError, SerializationError
 from .curve import CurveOps, PointVec, curve_ops
 from .fp import _sub_with_borrow
 from .hostmath import host_ext_one, host_ext_pow
@@ -121,6 +121,7 @@ class BatchPointCodec:
         self.uncompressed_size = 2 * self.compressed_size
         self.sqrter = ExtSqrt(self.F, ops.spec.q)
         self._q_limbs = int_to_limbs(self.spec.q, self.fp.L)
+        self._r_limbs = int_to_limbs(self.spec.r, ops.fr.L)
         self._write_selfchecked = False
 
     def size(self, compression: UseCompression) -> int:
@@ -206,6 +207,42 @@ class BatchPointCodec:
         ok = F.eq(F.mul(p["y"], p["y"]), self.rhs(p["x"]))
         return ok | self.ops.is_infinity(p)
 
+    # -- subgroup membership ------------------------------------------------
+    def subgroup_mask(self, p: PointVec) -> torch.Tensor:
+        """Prime-order-subgroup membership mask per element (Direct mode;
+        infinity counts as in-group), on the points' device: the card's
+        kernels, or their plain versions on the CPU. The reference's
+        `subgroup_mask_direct`; its host-bigint fallback for XLA:CPU
+        (`subgroup_mask_host`) has no counterpart here.
+
+        Where the curve's GLV eigenvalue e satisfies e^2 + e + 1 == r
+        exactly (the BLS12 groups), ker(phi - [e]) has order r and equals
+        the subgroup, so `phi(P) == [e]P` decides membership with a ladder
+        as wide as e (ops/glv.py). Elsewhere it is [r]P == O — both through
+        the raw windowed ladder, never the GLV one: GLV computes [k mod r]P
+        only inside the subgroup, and r = 0 mod r would pass every point.
+
+        The complete formulas are exact except where the two summands differ
+        by a point of order 2 (BW6-761 and BLS12-377 G1 have such points):
+        there they return (0 : 0 : 0), which every later operation keeps.
+        That never happens inside the odd-order subgroup, so a ladder that
+        ends in (0 : 0 : 0) marks a point outside it — where the reference
+        counts (0 : 0 : 0) as infinity (Z = 0) and accepts the point."""
+        ops, F = self.ops, self.F
+        B = p["x"].shape[-1]
+        dev = p["x"].device
+        if ops._endo_check is not None:
+            lam_limbs, lam_bits, lam_neg = ops._endo_check
+            scalars = torch.from_numpy(lam_limbs.astype(np.int32)).to(dev).expand(lam_limbs.shape[0], B)
+            lp = ops.scalar_mul_windowed(p, scalars, nbits=lam_bits)
+            if lam_neg:
+                lp = ops.neg(lp)
+            proper = ~(F.is_zero(lp["y"]) & F.is_zero(lp["z"]))  # not (0 : 0 : 0)
+            return ops.eq_projective(lp, ops.endo(p)) & proper
+        r = torch.from_numpy(self._r_limbs.astype(np.int32)).to(dev)
+        prod = ops.scalar_mul_windowed(p, r[:, None].expand(r.shape[0], B))
+        return ops.is_infinity(prod) & ~F.is_zero(prod["y"])
+
     # -- public batch API --------------------------------------------------
     def read_batch(
         self,
@@ -279,18 +316,26 @@ class BatchPointCodec:
         compression: UseCompression = UseCompression.NO,
         n_valid: int | None = None,
     ) -> None:
+        """Raise per `check` on the first `n_valid` lanes (default: all):
+        infinity (FULL, ONLY_NON_ZERO), off the curve (FULL, ONLY_IN_GROUP;
+        compressed points are on the curve by construction) and outside the
+        prime-order subgroup (FULL, ONLY_IN_GROUP, unless `subgroup_mode` is
+        NO)."""
         if check is CheckForCorrectness.NO:
             return
-        if check is not CheckForCorrectness.ONLY_NON_ZERO:
-            raise NotImplementedError(
-                f"{check}: on-device subgroup checks are not ported yet "
-                "(ROADMAP Queue A, 'verification'); use NO or ONLY_NON_ZERO"
-            )
         inf = self.ops.is_infinity(p)
         batch = int(inf.shape[-1])
         valid = torch.arange(batch, device=inf.device) < (batch if n_valid is None else n_valid)
-        if bool((inf & valid).any()):
-            raise PointAtInfinityError("point at infinity in batch")
+        if check in (CheckForCorrectness.FULL, CheckForCorrectness.ONLY_NON_ZERO):
+            if bool((inf & valid).any()):
+                raise PointAtInfinityError("point at infinity in batch")
+        if check in (CheckForCorrectness.FULL, CheckForCorrectness.ONLY_IN_GROUP):
+            if compression is not UseCompression.YES:
+                if not bool((self.on_curve_mask(p) | ~valid).all()):
+                    raise SerializationError("point not on curve")
+            if subgroup_mode is not SubgroupCheckMode.NO:
+                if not bool((self.subgroup_mask(p) | inf | ~valid).all()):
+                    raise IncorrectSubgroupError("point not in prime-order subgroup")
 
     def _write_device(self, p: PointVec, normalized: bool = False):
         if normalized:

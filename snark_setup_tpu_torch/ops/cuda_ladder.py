@@ -15,32 +15,21 @@ Replaces the reference's FusedGLVLadder (ops/pallas_ladder.py).
 
 from __future__ import annotations
 
-import copy
 import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .curve import PointVec
+from .curve import PointVec, plain_group_law
 
 WINDOW = 4
 
 
-@functools.lru_cache(maxsize=None)
-def _plain_group_law(ops):
-    """A copy of `ops` whose field products are K5's plain version, counted
-    in that wrapper's `plain_calls`."""
-    plain = copy.copy(ops)
-    plain.field = copy.copy(ops.field)
-    plain.field.product = ops.field.product.plain
-    return plain
-
-
 def glv_ladder_plain(ops, pts: PointVec, d1, d2, neg1, flip) -> PointVec:
-    """Plain PyTorch version, built from CurveOps' group law with every
-    product in plain PyTorch (no kernel launch on any device)."""
-    ops = _plain_group_law(ops)
+    """Plain PyTorch version, built from CurveOps' stacked group law with
+    every product in plain PyTorch (no kernel launch on any device)."""
+    ops = plain_group_law(ops)
     F = ops.field
     neg1 = neg1.bool()
     flip = flip.bool()

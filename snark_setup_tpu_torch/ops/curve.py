@@ -12,7 +12,10 @@ Design:
   and infinity uniformly. Infinity is (0 : 1 : 0). Every formula is three
   multiplication rounds; each round is one `F.mul_stacked` call — stacked
   products, a weighted merge of their columns and one reduction per output —
-  which is one launch of the stacked-product kernel K5 on the card.
+  which is one launch of the stacked-product kernel K5 on the card. On Fq
+  coordinates with a = 0 (G1 of BLS12-377/381, both groups of BW6-761) a
+  whole double or add is instead one launch of the group-op kernel K2
+  (ops/cuda_group.py), whose plain version is this stacked law.
 - `scalar_mul` is the GLV path ([k mod r]P, subgroup points only) where the
   curve has the cube-root endomorphism: on Fq coordinates the digits kernel
   K3 and the whole-ladder kernel K4 (cuda_glv.py, cuda_ladder.py); on Fp2
@@ -26,6 +29,7 @@ functions return equal the reference's limb for limb.
 
 from __future__ import annotations
 
+import copy
 import functools
 import math
 
@@ -34,7 +38,7 @@ import torch
 
 from ..curves.constants import CurveSpec, get_curve
 from ..curves.host import AffinePoint, INFINITY, g1_curve, g2_curve
-from ..fields.limb import LIMB_BITS, limbs_batch_to_ints
+from ..fields.limb import LIMB_BITS, int_to_limbs, limbs_batch_to_ints
 from .ext import make_field_ops
 from .fp import _tree_batch_inv, fp_ops
 
@@ -121,6 +125,17 @@ class CurveOps:
             # beta in Fq: multiplying every coordinate plane by it applies phi
             # whatever the extension degree (coefficient-wise)
             self.beta_np = self.fq.from_int(params.beta)[:, None]
+        # the endomorphism subgroup check phi(P) == [e]P (ops/codec.py):
+        # (|e| as raw limbs (nl, 1), bit width of |e|, e < 0), or None where
+        # the curve has no such e (then the check is [r]P == O)
+        self._endo_check = None
+        if params is not None and params.endo_check_lambda is not None:
+            e = params.endo_check_lambda
+            nl = -(-abs(e).bit_length() // LIMB_BITS)
+            self._endo_check = (int_to_limbs(abs(e), nl)[:, None], abs(e).bit_length(), e < 0)
+        # one launch of K2 per double / add where it applies (Fq, a = 0);
+        # False in the plain law every plain version runs (plain_group_law)
+        self.use_group_kernel = degree == 1 and self.a_is_zero and self._b3_small is not None
 
     def _const(self, name: str, like: torch.Tensor) -> torch.Tensor:
         """a_np / b_np / b3_np / neg_a2_np as a tensor broadcastable against
@@ -162,18 +177,24 @@ class CurveOps:
         )
 
     def to_affine_host(self, p: PointVec) -> list[AffinePoint]:
-        """Device batch -> host affine points (batch-inverts Z on device)."""
-        x, y, inf = self.normalize(p)
-        cxs = self._std_to_coeffs(self.fq.from_mont(x))
-        cys = self._std_to_coeffs(self.fq.from_mont(y))
+        """Device batch -> host affine points. The Montgomery planes are
+        copied as they are and Z is inverted with host field arithmetic:
+        the output is host points either way, and the device's Fermat
+        inversion is ~1100 dependent products of the plain field layer."""
+        q = self.spec.q
+        r_inv = pow(self.fq.spec.mont_r, -1, q)
+
+        def host(arr):  # Montgomery planes -> host field elements
+            vals = [tuple(c * r_inv % q for c in cs) for cs in self._std_to_coeffs(arr)]
+            return [self.spec.fp(v[0]) if self.field.degree == 1 else self.spec.g2_field(v) for v in vals]
+
         out = []
-        for cx, cy, isinf in zip(cxs, cys, inf.cpu().numpy().reshape(-1)):
-            if isinf:
+        for x, y, z in zip(host(p["x"]), host(p["y"]), host(p["z"])):
+            if z.is_zero():
                 out.append(INFINITY)
-            elif self.field.degree == 1:
-                out.append(AffinePoint(self.spec.fp(cx[0]), self.spec.fp(cy[0])))
             else:
-                out.append(AffinePoint(self.spec.g2_field(cx), self.spec.g2_field(cy)))
+                z_inv = z.inverse()
+                out.append(AffinePoint(x * z_inv, y * z_inv))
         return out
 
     def _std_to_coeffs(self, arr: torch.Tensor) -> list[tuple]:
@@ -186,12 +207,36 @@ class CurveOps:
         return [tuple(ints[i * deg : (i + 1) * deg]) for i in range(len(ints) // deg)]
 
     # -- group law ---------------------------------------------------------
+    def _group_kernel(self):
+        """The K2 wrapper of this group, or None where the stacked law runs."""
+        if not self.use_group_kernel:
+            return None
+        from .cuda_group import group_ops_for
+
+        return group_ops_for(self.spec.name, self.group_name)
+
     def add(self, p: PointVec, q: PointVec) -> PointVec:
+        """Complete addition: one K2 launch on Fq coordinates with a = 0 (its
+        plain version on CPU tensors), else the stacked law (K5 rounds).
+        Batch shapes broadcast."""
+        k2 = self._group_kernel()
+        if k2 is not None:
+            return k2.add(p, q)
+        return self._add_law(p, q)
+
+    def double(self, p: PointVec) -> PointVec:
+        """Complete doubling: one K2 launch where it applies, else the
+        stacked law."""
+        k2 = self._group_kernel()
+        if k2 is not None:
+            return k2.double(p)
+        return self._double_law(p)
+
+    def _add_law(self, p: PointVec, q: PointVec) -> PointVec:
         """RCB complete addition in three stacked multiplication rounds
         (Alg. 7 for a = 0, Alg. 1 otherwise)."""
         F = self.field
-        X1, Y1, Z1 = p["x"], p["y"], p["z"]
-        X2, Y2, Z2 = q["x"], q["y"], q["z"]
+        X1, Y1, Z1, X2, Y2, Z2 = torch.broadcast_tensors(p["x"], p["y"], p["z"], q["x"], q["y"], q["z"])
 
         # round 0: the six symmetric products (the three pair sums of each
         # operand come from one stacked addition)
@@ -233,12 +278,12 @@ class CurveOps:
         R = F.mul_stacked(A, Bv, _PAIRS3, 2 * F.prod_nprod)
         return PointVec(x=F.unstack(R, 1), y=F.unstack(R, 0), z=F.unstack(R, 2))
 
-    def double(self, p: PointVec) -> PointVec:
+    def _double_law(self, p: PointVec) -> PointVec:
         """Complete doubling. For a = 0 the dedicated RCB doubling (Alg. 9):
         9 products in three stacked rounds (two where |3b| folds into round 0
         as a weight). a != 0 is add(p, p)."""
         if not self.a_is_zero:
-            return self.add(p, p)
+            return self._add_law(p, p)
         F = self.field
         X, Y, Z = p["x"], p["y"], p["z"]
         U = F.stack([Y, Y, X, Z])
@@ -272,6 +317,22 @@ class CurveOps:
 
     def neg(self, p: PointVec) -> PointVec:
         return PointVec(x=p["x"], y=self.field.neg(p["y"]), z=p["z"])
+
+    def eq_projective(self, p: PointVec, q: PointVec) -> torch.Tensor:
+        """Projective equality mask: X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1
+        (two stacked rounds, K5 on the card). Infinity (Z = 0) equals only
+        infinity."""
+        F = self.field
+        x = p["x"]
+        U = F.stack([p["x"], p["y"]])
+        V = F.stack([q["z"].expand_as(x)] * 2)
+        U2 = F.stack([q["x"], q["y"]])
+        V2 = F.stack([p["z"].expand_as(x)] * 2)
+        A = F.mul_stacked(U, V, _ID2, F.prod_nprod)
+        Bm = F.mul_stacked(U2, V2, _ID2, F.prod_nprod)
+        both_inf = self.is_infinity(p) & self.is_infinity(q)
+        coords_eq = F.eq(F.unstack(A, 0), F.unstack(Bm, 0)) & F.eq(F.unstack(A, 1), F.unstack(Bm, 1))
+        return coords_eq | both_inf
 
     def select(self, cond, p: PointVec, q: PointVec) -> PointVec:
         F = self.field
@@ -402,6 +463,29 @@ class CurveOps:
             acc = self.add(acc, self._select_entry(t2, d2[k]))
         return acc
 
+    # -- reductions --------------------------------------------------------
+    def sum_reduce(self, p: PointVec) -> PointVec:
+        """Tree-reduce a batch of points over the last axis to one point
+        (last axis of size 1): lanes 2i and 2i+1 are added at every level,
+        an odd last lane is carried up unchanged — the reference's pairing
+        order, so the projective result is the reference's too."""
+        n = p["x"].shape[-1]
+        while n > 1:
+            half = n // 2
+            even = PointVec({k: v[..., 0 : 2 * half : 2] for k, v in p.items()})
+            odd = PointVec({k: v[..., 1 : 2 * half : 2] for k, v in p.items()})
+            merged = self.add(even, odd)
+            if n % 2:
+                merged = PointVec({k: torch.cat([merged[k], p[k][..., -1:]], dim=-1) for k in merged})
+            p = merged
+            n = half + (n % 2)
+        return p
+
+    def msm(self, p: PointVec, scalars_raw: torch.Tensor) -> PointVec:
+        """Multi-scalar multiplication for subgroup points: the batched GLV
+        scalar-mul, then the tree reduction."""
+        return self.sum_reduce(self.scalar_mul(p, scalars_raw))
+
     # -- normalization -----------------------------------------------------
     def normalize(self, p: PointVec):
         """Projective -> affine using one batched inversion over the
@@ -411,6 +495,19 @@ class CurveOps:
         el_ndim = 1 if F.degree == 1 else 2
         inv_z = _tree_batch_inv(F, z.reshape(*z.shape[:el_ndim], -1)).reshape(z.shape)
         return F.mul(p["x"], inv_z), F.mul(p["y"], inv_z), self.is_infinity(p)
+
+
+@functools.lru_cache(maxsize=None)
+def plain_group_law(ops: CurveOps) -> CurveOps:
+    """A copy of `ops` whose field products are K5's plain version (counted
+    in that wrapper's `plain_calls`) and whose add / double are the stacked
+    law on every group: the group law of every plain version, pure PyTorch
+    on any device, never a kernel launch."""
+    plain = copy.copy(ops)
+    plain.field = copy.copy(ops.field)
+    plain.field.product = ops.field.product.plain
+    plain.use_group_kernel = False
+    return plain
 
 
 @functools.lru_cache(maxsize=None)

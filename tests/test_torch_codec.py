@@ -127,5 +127,13 @@ def test_checks_for_correctness():
     no_inf = b"".join(host.serialize(p, UseCompression.YES) for p in pts if not p.is_infinity)
     # padding rows are infinity and must not trip the non-zero check
     codec.read_batch(no_inf, UseCompression.YES, CheckForCorrectness.ONLY_NON_ZERO, pad_to=9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        codec.read_batch(no_inf, UseCompression.YES, CheckForCorrectness.FULL)
+    # FULL adds the subgroup check (Direct: [r]P == O on BW6-761) and, for
+    # uncompressed input, the curve equation
+    codec.read_batch(no_inf, UseCompression.YES, CheckForCorrectness.FULL, pad_to=9)
+    with pytest.raises(PointAtInfinityError):
+        codec.read_batch(data, UseCompression.YES, CheckForCorrectness.FULL)
+    unc = bytearray(host.serialize(pts[0], UseCompression.NO))
+    codec.read_batch(bytes(unc), UseCompression.NO, CheckForCorrectness.ONLY_IN_GROUP)
+    unc[0] ^= 1  # x off by one: off the curve
+    with pytest.raises(SerializationError, match="not on curve"):
+        codec.read_batch(bytes(unc), UseCompression.NO, CheckForCorrectness.ONLY_IN_GROUP)

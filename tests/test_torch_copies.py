@@ -259,17 +259,71 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_unported_groups_and_commands_raise_not_implemented():
-    """Every group is ported now; the subgroup checks and the verification
-    subcommands are not."""
+    """Every group and every phase-1 subcommand is ported now: the subgroup
+    checks run and the verification subcommands reach their files. What
+    still raises NotImplementedError is a kernel asked for outside its
+    scope (the group-op and ladder kernels need Fq coordinates, a = 0)."""
     from snark_setup_tpu_torch.cli import phase1_main
     from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.cuda_group import GroupOps
+    from snark_setup_tpu_torch.ops.cuda_ladder import FusedGLVLadder
+    from snark_setup_tpu_torch.ops.curve import curve_ops
     from snark_setup_tpu_torch.serialize.arkworks import g2_codec
 
     codec = batch_codec("bls12_377", "g2", "cpu")
     hc = codec.ops.host_curve
     data = g2_codec(codec.spec).serialize(hc.mul(hc.generator, 5), tenums.UseCompression.NO)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        codec.read_batch(data, tenums.UseCompression.NO, tenums.CheckForCorrectness.FULL)
-    args = phase1_main.build_parser().parse_args(["--device", "cpu", "combine"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        phase1_main.execute(args)
+    p = codec.read_batch(data, tenums.UseCompression.NO, tenums.CheckForCorrectness.FULL)
+    assert codec.ops.to_affine_host(p) == [hc.mul(hc.generator, 5)]
+    for name in ("verify-and-transform-pok-and-correctness", "verify-and-transform-ratios", "combine", "split"):
+        args = phase1_main.build_parser().parse_args(["--device", "cpu", name])
+        with pytest.raises(FileNotFoundError):
+            phase1_main.execute(args)
+    for curve, group in (("bls12_377", "g2"), ("mnt4_753", "g1")):
+        with pytest.raises(NotImplementedError):
+            GroupOps(curve_ops(curve, group))
+        with pytest.raises(NotImplementedError):
+            FusedGLVLadder(curve_ops(curve, group))
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "bw6_761"])
+def test_pairing_copies_equal_reference(curve):
+    """curves/{tower,pairing}.py are host copies: the same pairing values
+    (nested tuples of ints) and the same check_same_ratio decisions."""
+    from snark_setup_tpu.curves.host import g1_curve as jg1, g2_curve as jg2
+    from snark_setup_tpu.curves.pairing import pairing_engine as j_engine
+    from snark_setup_tpu.utils.errors import InvalidRatioError as JInvalidRatio
+    from snark_setup_tpu_torch.curves.host import INFINITY, g1_curve as tg1, g2_curve as tg2
+    from snark_setup_tpu_torch.curves.pairing import pairing_engine as t_engine
+    from snark_setup_tpu_torch.utils.errors import InvalidRatioError as TInvalidRatio
+
+    js, ts = jconst.get_curve(curve), tconst.get_curve(curve)
+    je_, te_ = j_engine(curve), t_engine(curve)
+    j1, j2, t1, t2 = jg1(js), jg2(js), tg1(ts), tg2(ts)
+    jp, jq = j1.mul(j1.generator, 11), j2.mul(j2.generator, 13)
+    tp, tq = t1.mul(t1.generator, 11), t2.mul(t2.generator, 13)
+    assert te_.pairing_value(tp, tq) == je_.pairing_value(jp, jq)
+    # (a, a^7) against (b, b^7): same ratio; against (b, b^8): not
+    te_.check_same_ratio((tp, t1.mul(tp, 7)), (tq, t2.mul(tq, 7)), "same")
+    je_.check_same_ratio((jp, j1.mul(jp, 7)), (jq, j2.mul(jq, 7)), "same")
+    for t_pair, j_pair in (((tq, t2.mul(tq, 8)), (jq, j2.mul(jq, 8))), ((tq, INFINITY), None)):
+        with pytest.raises(TInvalidRatio):
+            te_.check_same_ratio((tp, t1.mul(tp, 7)), t_pair, "different")
+        if j_pair is not None:
+            with pytest.raises(JInvalidRatio):
+                je_.check_same_ratio((jp, j1.mul(jp, 7)), j_pair, "different")
+
+
+def test_verification_entry_points_raise_without_a_card():
+    """The verification path runs on the card unless the caller asks for
+    the CPU: without a card it raises before any work."""
+    from snark_setup_tpu_torch.phase1.protocol import Phase1
+
+    tp = tparams.Phase1Parameters.new_full("bls12_377", tenums.ProvingSystem.GROTH16, 2, 2)
+    for call in (
+        lambda: Phase1.aggregate_verification(b"", tenums.UseCompression.NO, tenums.CheckForCorrectness.NO, tp),
+        lambda: Phase1.decompress(b"", bytearray(), tenums.CheckForCorrectness.NO, tp),
+        lambda: Phase1.aggregation([], bytearray(), tenums.UseCompression.NO, tp),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

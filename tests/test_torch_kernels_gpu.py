@@ -107,3 +107,49 @@ def test_stacked_mul_kernel_equals_plain_version_on_the_card(curve, group, weigh
     want = stacked_mul_plain(fq, *K.gather(U, V, rows), comp)
     assert torch.equal(got, want)
     assert torch.equal(K(*K.gather(U, V, rows), comp), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4097, 16384])
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_group_op_kernels_equal_plain_version_on_the_card(curve, group, B):
+    """K2 double / add against the plain group law: affine and projective
+    operands, O + Q, P + O, P + P, P + (-P), a batch-1 second operand."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_group import group_ops_for
+    from snark_setup_tpu_torch.ops.curve import plain_group_law
+
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    hc = ops.host_curve
+    rng = np.random.default_rng(7)
+    base = [INFINITY] + [hc.mul(hc.generator, int(k)) for k in rng.integers(1, 1 << 30, 15)]
+    table = ops.from_affine_host(base, dev)
+    ip = torch.from_numpy(rng.integers(1, 16, B)).to(dev)
+    iq = torch.from_numpy(rng.integers(1, 16, B)).to(dev)
+    ip[0], iq[1], iq[2] = 0, 0, ip[2]  # O + Q, P + O, P + P
+    P = PointVec({k: v[:, ip].contiguous() for k, v in table.items()})
+    Q = PointVec({k: v[:, iq].contiguous() for k, v in table.items()})
+    Q["x"][:, 3], Q["z"][:, 3] = P["x"][:, 3], P["z"][:, 3]
+    Q["y"][:, 3] = ops.fq.neg(P["y"][:, 3:4])[:, 0]  # P + (-P)
+    k2, plain = group_ops_for(curve, group), plain_group_law(ops)
+    P2, Q2 = plain.double(P), plain.double(Q)  # Z != 1
+    q1 = PointVec({k: v[:, 5:6] for k, v in Q2.items()})
+    n_dbl, n_add = k2.dbl.launches, k2.add_k.launches
+    with torch.no_grad():
+        for p in (P, P2):
+            got, want = k2.double(p), plain.double(p)
+            for k in "xyz":
+                assert torch.equal(got[k], want[k]), ("double", k)
+        for p, q in ((P, Q), (P2, Q2), (P2, q1)):
+            got, want = k2.add(p, q), plain.add(p, q)
+            for k in "xyz":
+                assert torch.equal(got[k], want[k]), ("add", k)
+    torch.cuda.synchronize()
+    assert (k2.dbl.launches, k2.add_k.launches) == (n_dbl + 2, n_add + 3)
+    lanes = [0, 1, 2, 3, B - 1]
+    got = ops.to_affine_host(PointVec({k: v[:, lanes].contiguous() for k, v in k2.add(P, Q).items()}))
+    for lane, pt in zip(lanes, got):
+        assert pt == hc.add(base[int(ip[lane])] if lane != 3 else base[int(ip[3])],
+                            base[int(iq[lane])] if lane != 3 else hc.neg(base[int(ip[3])])), lane
