@@ -15,7 +15,13 @@ coordinator's side: `verify-and-transform-pok-and-correctness` and
 `verify-and-transform-ratios` on the BW6-761 contribution (plus three bad
 responses that must be rejected by the named check) and on a BLS12-377 one —
 and checks the results against the host oracle (Python-int curve arithmetic
-and the host codec). Each path runs with every kernel's launch count set to 0
+and the host codec). Then the stacked product's three opt-in routes: the
+BLS12-377 contribution again under SNARK_SETUP_KERNEL_V3 (kernel K7) and
+under SNARK_SETUP_MXU_STACKED (K6 + the matrix-product reduction), the
+MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
+elsewhere), each response byte-identical to the default route's from the
+same challenge and seed, and the batch scalar-mul under the routes at the
+other limb count (host-oracle spot checks). Each path runs with every kernel's launch count set to 0
 just before it and read just after; every kernel must have launched on its
 path, and no plain version may have run there.
 
@@ -32,16 +38,21 @@ larger of
     integer multiply-adds per clock per SM against 128 fp32 ones, so half of
     it. A 32x32->64-bit multiply-add is counted as one such instruction: if
     the card runs it at a lower rate the true bound is higher, never lower.
+    K6, K7 and K8 are charged the work of the function they compute, as
+    K5 counts it, whatever their own algorithm; the Toeplitz products of K7
+    and K8 (u8 x u8 -> s32 on the tensor cores) add 989.5e12 multiply-adds
+    /s (the data sheet's 1979 dense int8 TOP/s) on their own unit, the
+    units overlapping.
 There is no single PyTorch call that computes any of these functions (a
 batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 With `--sweep` it also times the ladder kernel at batch 2^12 .. 2^17 (how far
 one thread per lane fills the card at the batch sizes a ceremony uses).
-`--power` sets the size of the BW6-761 and BLS12-377 contribute phases and of
-the BW6-761 verify path (default 16); the MNT phases run at MNT_POWER (14),
-one full batch per G2 section, the BLS12-377 verify path at BLS_VERIFY_POWER
-(14).
+`--power` sets the size of the BW6-761 and BLS12-377 contribute phases, the
+BLS12-377 route paths and the BW6-761 verify path (default 16); the MNT
+phases run at MNT_POWER (14), one full batch per G2 section, the BLS12-377
+verify path at BLS_VERIFY_POWER (14).
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -62,6 +73,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
+INT8_MAC_PER_S = 989.5e12  # the data sheet's 1979 dense int8 TOP/s on the tensor cores
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
@@ -83,6 +95,25 @@ STACKED = (
     ("mnt6_753", "g2", "Fp3 add round 0", ID6),
     ("mnt6_753", "g2", "Fp3 add round 2 (pairwise merge)", PAIRS),
 )
+# the opt-in routes' kernels: K6 and K7 at every K5 shape above; K8 only
+# where v2_supported holds (degree-1 rounds with small weight sums)
+ROUTE_SHAPES = {
+    "k6": STACKED,
+    "k7": STACKED,
+    "k8": (
+        STACKED[1],
+        ("mnt4_753", "g1", "Fq add round 0", ID6),
+        ("mnt4_753", "g1", "Fq add round 2 (pairwise merge)", PAIRS),
+    ),
+}
+ROUTES = {  # wrapper attribute -> (switch, kernel name, source, reference pallas_call site)
+    "k6": ("SNARK_SETUP_MXU_STACKED", "stacked_cols", "snark_setup_tpu_torch/ops/csrc/stacked_cols.cu",
+           "snark_setup_tpu/ops/pallas_field.py:636"),
+    "k7": ("SNARK_SETUP_KERNEL_V3", "stacked_mul_v3", "snark_setup_tpu_torch/ops/csrc/stacked_mul_v3.cu",
+           "snark_setup_tpu/ops/pallas_field.py:536"),
+    "k8": ("SNARK_SETUP_KERNEL_V2", "stacked_mul_v2", "snark_setup_tpu_torch/ops/csrc/stacked_mul_v2.cu",
+           "snark_setup_tpu/ops/pallas_field.py:596"),
+}
 SECTIONS = (
     ("tau_g1", "g1", None),
     ("tau_g2", "g2", None),
@@ -177,9 +208,12 @@ def kernel_work(ops, dig, lad, B: int) -> dict:
     return {"glv_digits": (dig_bytes, dig_ops), "glv_ladder": (lad_bytes, lad_ops)}
 
 
-def bound(nbytes: int, nops: int) -> tuple[float, str]:
+def bound(nbytes: int, nops: int, int8_macs: int = 0) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time, each kind of
+    operation on its own unit (32-bit integer multiply-adds, int8
+    tensor-core multiply-adds) and the units overlapping."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / IMAD_PER_S * 1e3
+    by_ops = max(nops / IMAD_PER_S, int8_macs / INT8_MAC_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -355,6 +389,88 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
               "ragged_batch": RAGGED, "edge_values": [0, 1, "N-1"], "equal": True,
               "ms": {"kernel": ms, "plain": plain_ms},
               "plain_chunk_lanes": chunk})
+    return rows
+
+
+def route_work(route: str, fq, weights, SU: int, SV: int, B: int) -> tuple[int, int, int]:
+    """(bytes, 32-bit multiply-adds, int8 tensor-core multiply-adds) of the
+    function one launch of a route's kernel computes, counted as
+    `stacked_work` counts K5, not by the route's own algorithm. K7 and K8
+    return K5's product: K5's bytes and multiply-adds, plus their Toeplitz
+    reduction's (2L x 4L) + (4L x 2L) = 16 L^2 byte multiply-adds per lane
+    and output group on the tensor cores. K6 returns the unreduced columns:
+    K5's operand reads and products without the reduction, and 2L columns
+    per output group at 4 bytes each (every column is below 2^32)."""
+    L, NL, G = fq.L, fq.L // 2, len(weights)
+    nbytes, nops = stacked_work(fq, weights, SU, SV, B)
+    if route == "k6":
+        return 4 * L * B * (SU + SV) + 4 * 2 * L * G * B, nops - B * G * NL * NL, 0
+    return nbytes, nops, B * G * 16 * L * L
+
+
+def compare_routes(dev, batch: int) -> list[dict]:
+    """K6, K7 and K8 against their plain versions (and K7, K8 against K5) at
+    the main paths' shapes: a ragged batch with edge values, then the main
+    path's batch with timings beside K5's at the same shape."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    rows = []
+    for route, shapes in ROUTE_SHAPES.items():
+        _, kname, source, replaces = ROUTES[route]
+        for ci, (curve, group, label, weights) in enumerate(shapes):
+            F = curve_ops(curve, group).field
+            fq = F.fp
+            P = stacked_product_for(fq.modulus)
+            K = getattr(P, route)
+            S = len(weights[0])
+            if F.degree == 1:
+                comp, maps = weights, (tuple(range(S)), tuple(range(S)), (0,) * S)
+            else:
+                comp, maps = F._flattened(weights, S)
+            SU = F.degree * S
+            rng = np.random.default_rng(SEED + 800 + ci)
+            # lanes per chunk of the plain version: ~4 (L, L) int64 tables
+            # per stacked row and lane
+            chunk = max(256, int(4e9 // (4 * fq.L * fq.L * 8 * len(comp[0]))))
+            err = 0
+            for B in (RAGGED, batch):
+                U, V = stacked_inputs(fq, SU, B, rng, dev), stacked_inputs(fq, SU, B, rng, dev)
+                got = K(U, V, comp, maps)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                Ug, Vg = K.gather(U, V, maps)
+                want = torch.cat([K.plain_fn(Ug[..., lo:lo + chunk], Vg[..., lo:lo + chunk], comp)
+                                  for lo in range(0, B, chunk)], dim=-1)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                err = max(err, max_abs_diff(got, want))
+                if route != "k6":
+                    err = max(err, max_abs_diff(got, P.k5(U, V, comp, maps)))
+                if err or got.dtype != want.dtype:
+                    raise AssertionError(f"{route} {curve} {label} B={B}: kernel differs from plain version")
+            ms = event_ms(lambda: K(U, V, comp, maps), 20)
+            k5_ms = event_ms(lambda: P.k5(U, V, comp, maps), 20)
+            b_ms, b_by = bound(*route_work(route, fq, comp, SU, SU, batch))
+            if fq.L == 24 and route != "k8":
+                path = "bls12_377 v3" if route == "k7" else "bls12_377 mxu"
+            else:
+                path = "mnt4_753 v2" if route == "k8" and fq.L == 48 else "route scalar-muls"
+            name = f"{kname}[{curve} {label}]"
+            rows.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None, "batch": batch, "k5_ms": k5_ms,
+                "shape": {"S": len(comp[0]), "G": len(comp), "SU": SU,
+                          "max_weight_sum": max(sum(g) for g in comp)},
+                "_wrapper": K, "_path": path, "_label": f"{kname}[{curve}]", "_route": True,
+            })
+            emit({"phase": "kernels", "config": name, "batch": batch, "ragged_batch": RAGGED,
+                  "edge_values": [0, 1, "N-1"], "equal": True, "equal_to_k5": route != "k6",
+                  "ms": {"kernel": ms, "plain": plain_ms, "k5": k5_ms}, "plain_chunk_lanes": chunk})
     return rows
 
 
@@ -690,6 +806,89 @@ def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
         emit({"phase": "contribute", "curve": curve, "step": "new", "seconds": t_new})
     for w in wrappers.values():
         w.events = None
+
+
+@contextlib.contextmanager
+def switched(name: str):
+    """One route switch set for the block, restored after it (also when
+    the block raises: the exception goes on)."""
+    old = os.environ.get(name)
+    os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def route_phase(dev, curve: str, power: int, batch: int, switch: str, default_dir: str,
+                wrappers: dict) -> None:
+    """`contribute` through the port's CLI under one route switch, on the
+    challenge and seed that the default route's path left in `default_dir`:
+    the response must equal that path's, byte for byte."""
+    import torch
+
+    from snark_setup_tpu_torch.cli import phase1_main
+
+    common = ["--curve-kind", curve, "--proving-system", "groth16", "--contribution-mode",
+              "full", "--power", str(power), "--batch-size", str(batch), "--device", dev.type]
+    src = lambda name: os.path.join(default_dir, name)
+    for w in wrappers.values():
+        w.events = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_route_") as tmp, switched(switch):
+        out = os.path.join(tmp, "response")
+        t0 = time.perf_counter()
+        phase1_main.execute(phase1_main.build_parser().parse_args([
+            *common, "--seed", src("seed1"), "contribute", "--challenge-fname", src("challenge1"),
+            "--challenge-hash-fname", os.path.join(tmp, "challenge.hash"), "--response-fname", out,
+            "--response-hash-fname", os.path.join(tmp, "response.hash")]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with open(out, "rb") as f, open(src("response1"), "rb") as g:
+            got, want = f.read(), g.read()
+    if got != want:
+        raise AssertionError(f"{curve} under {switch}: the response differs from the default route's")
+    kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.events = None
+    emit({"phase": "route", "curve": curve, "switch": switch, "power": power, "batch_size": batch,
+          "wall_seconds": secs, "response_bytes": len(got), "equal_to_default_route": True,
+          "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3})
+
+
+def route_scalar_mul_phase(dev, batch: int) -> None:
+    """The batch scalar-mul entry point under a route switch where the
+    routes meet the other limb count: BLS12-377 G2 under KERNEL_V2 (K8 at
+    NL 12: the endomorphism's beta planes), MNT4-753 G1 and MNT6-753 G2
+    under KERNEL_V3 (K7 at NL 24) and MXU_STACKED (K6 at NL 24); host-oracle
+    spot checks on four lanes each."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
+    from snark_setup_tpu_torch.shard import runtime
+
+    for ci, (curve, group, route) in enumerate((("bls12_377", "g2", "k8"), ("mnt4_753", "g1", "k7"),
+                                                ("mnt4_753", "g1", "k6"), ("mnt6_753", "g2", "k7"),
+                                                ("mnt6_753", "g2", "k6"))):
+        ops = curve_ops(curve, group)
+        rng = np.random.default_rng(SEED + 900 + ci)
+        pts, scalars, ks, affine = make_inputs(ops, batch, rng, dev, edge=False, projective=False)
+        with switched(ROUTES[route][0]):
+            t0 = time.perf_counter()
+            out = runtime.scalar_mul(ops, pts, scalars, dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        lanes = [0, batch // 3, batch // 2, batch - 1]
+        got = ops.to_affine_host(PointVec({k: v[..., lanes].contiguous() for k, v in out.items()}))
+        for lane, pt in zip(lanes, got):
+            if pt != ops.host_curve.mul(affine[lane], ks[lane]):
+                raise AssertionError(f"scalar_mul {curve} {group} under {ROUTES[route][0]}: "
+                                     f"lane {lane} differs from the host oracle")
+        emit({"phase": "route", "config": f"scalar_mul {curve}/{group}", "switch": ROUTES[route][0],
+              "batch": batch, "seconds": secs, "oracle_lanes": lanes, "oracle_ok": True})
 
 
 def out_of_subgroup_g1(spec):
@@ -1045,7 +1244,8 @@ def sweep_phase(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--power", type=int, default=16,
-                    help="log2 size of the BW6-761 and BLS12-377 contribute phases (>= 14)")
+                    help="log2 size of the BW6-761 and BLS12-377 contribute phases, the BLS12-377 "
+                         "route paths and the BW6-761 verify path (>= 14)")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the ladder kernel at batch 2^12 .. 2^17")
     args = ap.parse_args()
@@ -1062,6 +1262,10 @@ def main() -> int:
     # beside it, the script fails here and prints no result
     from snark_setup_tpu_torch.ops import build
 
+    # the default paths run on K5: no route switch from the caller's
+    # environment reaches them (the route paths set their own)
+    for switch, *_ in ROUTES.values():
+        os.environ.pop(switch, None)
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
@@ -1075,31 +1279,33 @@ def main() -> int:
                     for t, log in build.build_logs.items()}})
 
     with torch.no_grad(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        rows = compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_group_ops(dev, BATCH)
+        rows = (compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_routes(dev, BATCH)
+                + compare_group_ops(dev, BATCH))
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
         wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
 
         def labelled(curve):
             """The wrappers whose kernels a contribution on `curve` launches."""
             return {r["_label"]: r["_wrapper"] for r in rows
-                    if curve in r["_label"] and not r["_path"].endswith("verify")}
+                    if curve in r["_label"] and not r["_path"].endswith("verify") and not r.get("_route")}
 
         def on_path(path, *also):
             """The wrappers of a verify path's rows (and of the `also` rows)."""
             return {r["_label"]: r["_wrapper"] for r in rows if r["_path"] in (path, *also)}
 
-        bw6_dir, bls_dir = os.path.join(work, "bw6_761"), os.path.join(work, "bls12_377")
-        os.makedirs(bw6_dir)
-        os.makedirs(bls_dir)
+        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "bls12_377 p16", "mnt4_753")}
+        for d in dirs.values():
+            os.makedirs(d)
+        bw6_dir, bls_dir = dirs["bw6_761"], dirs["bls12_377"]
         # the main paths: every count to 0 just before each, read just after
         paths = (
             ("bw6_761", lambda: (scalar_mul_phase(dev, BATCH),
                                  contribute_phase(dev, "bw6_761", args.power, BATCH, labelled("bw6_761"),
                                                   contributions=2, workdir=bw6_dir))),
             ("bls12_377", lambda: contribute_phase(dev, "bls12_377", args.power, BATCH,
-                                                   labelled("bls12_377"))),
+                                                   labelled("bls12_377"), workdir=dirs["bls12_377 p16"])),
             ("mnt4_753", lambda: contribute_phase(dev, "mnt4_753", MNT_POWER, BATCH,
-                                                  labelled("mnt4_753"), picks=2)),
+                                                  labelled("mnt4_753"), picks=2, workdir=dirs["mnt4_753"])),
             ("mnt6_753", lambda: contribute_phase(dev, "mnt6_753", MNT_POWER, BATCH,
                                                   labelled("mnt6_753"), picks=2)),
             ("bw6_761 verify", lambda: verify_phase(
@@ -1109,6 +1315,15 @@ def main() -> int:
                 contribute_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, {}, picks=2, workdir=bls_dir),
                 verify_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, bls_dir, ("swap",),
                              on_path("bls12_377 verify", "bls12_377")))),
+            # the opt-in routes: the default paths' challenges and seeds under
+            # each switch, the response byte-identical to the default route's
+            ("bls12_377 v3", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k7"][0],
+                                                 dirs["bls12_377 p16"], on_path("bls12_377 v3"))),
+            ("bls12_377 mxu", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k6"][0],
+                                                  dirs["bls12_377 p16"], on_path("bls12_377 mxu"))),
+            ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
+                                                dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
+            ("route scalar-muls", lambda: route_scalar_mul_phase(dev, BATCH)),
         )
         for curve, run in paths:
             for w in wrappers:
@@ -1129,6 +1344,7 @@ def main() -> int:
                   "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve}})
         for r in rows:
             del r["_wrapper"], r["_label"]
+            r.pop("_route", None)
             r["path"] = r.pop("_path")
             r["max_abs_diff"] = r["max_abs_err"]  # the name the repo's records use
         breakdown_phase(dev, BATCH)

@@ -27,7 +27,8 @@ NVCC_FLAGS = [
 ]
 
 # library name -> (source file, extra defines). The ladder, the group
-# operations and the stacked product are instantiated once per limb count
+# operations and the stacked products (K5 and the opt-in routes' K6, K7,
+# K8) are instantiated once per limb count
 # (NL 32-bit limbs = L/2: 12 for BLS12-377/381's Fq, 24 for BW6-761's and
 # the MNT curves'): separate libraries build in parallel and keep each
 # compilation unit small.
@@ -39,6 +40,12 @@ TARGETS = {
     "group_ops_nl24": ("group_ops.cu", ["-DNL=24"]),
     "stacked_mul_nl12": ("stacked_mul.cu", ["-DNL=12"]),
     "stacked_mul_nl24": ("stacked_mul.cu", ["-DNL=24"]),
+    "stacked_cols_nl12": ("stacked_cols.cu", ["-DNL=12"]),
+    "stacked_cols_nl24": ("stacked_cols.cu", ["-DNL=24"]),
+    "stacked_mul_v3_nl12": ("stacked_mul_v3.cu", ["-DNL=12"]),
+    "stacked_mul_v3_nl24": ("stacked_mul_v3.cu", ["-DNL=24"]),
+    "stacked_mul_v2_nl12": ("stacked_mul_v2.cu", ["-DNL=12"]),
+    "stacked_mul_v2_nl24": ("stacked_mul_v2.cu", ["-DNL=24"]),
 }
 
 _lock = threading.Lock()

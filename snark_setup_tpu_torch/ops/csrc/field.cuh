@@ -120,6 +120,23 @@ __device__ __noinline__ void fneg(uint32_t* r, const uint32_t* a) {
     for (int j = 0; j < NL; ++j) r[j] = d[j] & m;
 }
 
+// r = -a mod N where neg is 1, a where it is 0 (0 stays 0)
+__device__ __forceinline__ void cond_neg(uint32_t* a, uint32_t neg) {
+    uint32_t d[NL];
+    uint32_t nz = 0;
+    int64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+        nz |= a[j];
+        c += (int64_t)FC.N[j] - (int64_t)a[j];
+        d[j] = (uint32_t)c;
+        c >>= 32;
+    }
+    const uint32_t m = (neg && nz) ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) a[j] = (d[j] & m) | (a[j] & ~m);
+}
+
 // r = sel ? a : b, branch-free (sel is 0 or 1)
 __device__ __forceinline__ void fselect(uint32_t* r, uint32_t sel, const uint32_t* a, const uint32_t* b) {
     const uint32_t m = 0u - sel;

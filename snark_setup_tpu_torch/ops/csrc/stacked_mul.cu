@@ -87,23 +87,6 @@ __device__ __forceinline__ void redc_wide(uint32_t* acc) {
     }
 }
 
-// r = -a mod N where neg is 1, a where it is 0 (0 stays 0)
-__device__ __forceinline__ void cond_neg(uint32_t* a, uint32_t neg) {
-    uint32_t d[NL];
-    uint32_t nz = 0;
-    int64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-        nz |= a[j];
-        c += (int64_t)FC.N[j] - (int64_t)a[j];
-        d[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    const uint32_t m = (neg && nz) ? 0xFFFFFFFFu : 0u;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) a[j] = (d[j] & m) | (a[j] & ~m);
-}
-
 // table: W (G * S) | urow (S) | vrow (S) | uneg (S), int32
 __global__ void __launch_bounds__(BLOCK)
 stacked_mul_kernel(const uint32_t* __restrict__ U, const uint32_t* __restrict__ V,

@@ -45,7 +45,13 @@ def stacked_mul_plain(fq: FpOps, U: torch.Tensor, V: torch.Tensor, weights) -> t
 
 class StackedMul:
     """K5 wrapper for one modulus; keeps the kernel's field constants and
-    weight tables per device and counts launches."""
+    weight tables per device and counts launches. The opt-in routes' kernels
+    (ops/cuda_routes.py) share its arguments, checks and tables and replace
+    the library (`TARGET`), the output, the extra launch arguments and the
+    plain version."""
+
+    TARGET = "stacked_mul"
+    EXTRA_ARGTYPES: tuple = ()
 
     def __init__(self, fq: FpOps):
         self.fq = fq
@@ -103,7 +109,11 @@ class StackedMul:
 
     def _plain(self, U, V, weights, rows) -> torch.Tensor:
         self.plain_calls += 1
-        return stacked_mul_plain(self.fq, *self.gather(U, V, rows), weights)
+        return self.plain_fn(*self.gather(U, V, rows), weights)
+
+    def plain_fn(self, U: torch.Tensor, V: torch.Tensor, weights) -> torch.Tensor:
+        """The plain version on gathered operands, uncounted."""
+        return stacked_mul_plain(self.fq, U, V, weights)
 
     def _checked_args(self, U, V, weights, rows):
         """Validated (weights, rows) as tuples of ints."""
@@ -151,15 +161,16 @@ class StackedMul:
         if self._fn is None:
             from .build import TARGETS, load
 
-            target = f"stacked_mul_nl{self.NL}"
+            target = f"{self.TARGET}_nl{self.NL}"
             if target not in TARGETS:
-                raise NotImplementedError(f"no stacked-product kernel is instantiated for {self.L} limbs")
+                raise NotImplementedError(f"no {self.TARGET} kernel is instantiated for {self.L} limbs")
             lib = load(target)
-            if lib.stacked_mul_nl() != self.NL:
+            if getattr(lib, f"{self.TARGET}_nl")() != self.NL:
                 raise RuntimeError(f"{target} was built for another limb count")
-            fn = lib.stacked_mul_launch
+            fn = getattr(lib, f"{self.TARGET}_launch")
             fn.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+                [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                + list(self.EXTRA_ARGTYPES) + [ctypes.c_void_p]
             )
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -173,16 +184,24 @@ class StackedMul:
             t = self._tables[key] = torch.tensor(flat, dtype=torch.int32).to(dev)
         return t
 
+    def _out(self, G: int, B: int, dev) -> torch.Tensor:
+        return torch.empty((self.L, G, B), dtype=torch.int32, device=dev)
+
+    def _extra_args(self, weights, dev) -> tuple:
+        """Launch arguments after the field constants (EXTRA_ARGTYPES)."""
+        return ()
+
     def _launch(self, U, V, weights, rows) -> torch.Tensor:
         dev = U.device
         G, S, B = len(weights), len(rows[0]), U.shape[2]
-        out = torch.empty((self.L, G, B), dtype=torch.int32, device=dev)
+        out = self._out(G, B, dev)
         if B == 0 or G == 0:
             return out
         consts = self._consts_dev.get(dev)
         if consts is None:
             consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
         table = self._table(weights, rows, dev)
+        extra = self._extra_args(weights, dev)
         fn = self._launch_fn()
         stream = torch.cuda.current_stream(dev)
         with torch.cuda.device(dev):
@@ -191,10 +210,10 @@ class StackedMul:
                 start.record(stream)
             err = fn(
                 U.data_ptr(), V.data_ptr(), out.data_ptr(), table.data_ptr(),
-                B, S, G, U.shape[1], V.shape[1], consts.data_ptr(), stream.cuda_stream,
+                B, S, G, U.shape[1], V.shape[1], consts.data_ptr(), *extra, stream.cuda_stream,
             )
         if err != 0:
-            raise RuntimeError(f"stacked_mul kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"{self.TARGET} kernel launch failed: CUDA error {err}")
         self.launches += 1
         if self.events is not None:
             end = torch.cuda.Event(enable_timing=True)

@@ -499,10 +499,11 @@ class CurveOps:
 
 @functools.lru_cache(maxsize=None)
 def plain_group_law(ops: CurveOps) -> CurveOps:
-    """A copy of `ops` whose field products are K5's plain version (counted
-    in that wrapper's `plain_calls`) and whose add / double are the stacked
-    law on every group: the group law of every plain version, pure PyTorch
-    on any device, never a kernel launch."""
+    """A copy of `ops` whose field products are the plain version of the
+    product's route (K5's by default; counted in that wrapper's
+    `plain_calls`) and whose add / double are the stacked law on every
+    group: the group law of every plain version, pure PyTorch on any
+    device, never a kernel launch."""
     plain = copy.copy(ops)
     plain.field = copy.copy(ops.field)
     plain.field.product = ops.field.product.plain

@@ -9,8 +9,9 @@ reference's ext_jax.py):
 The coefficient axis sits between the limb axis and the batch axes, so the
 FpOps elementwise ops (add/sub/neg/select) apply unchanged, while products
 go through `mul_stacked`: G Montgomery products, each a weighted sum of S
-stacked products, in one launch of the stacked-product kernel K5
-(ops/cuda_mul.py) on the card and its plain version on the CPU. A tower
+stacked products, in one launch of a stacked-product kernel on the card —
+K5 (ops/cuda_mul.py) by default, K6-K8 under the opt-in switches
+(ops/cuda_routes.py) — and its plain version on the CPU. A tower
 product flattens into that same primitive: every output coefficient of every
 group is a weighted sum of base-field products, so a stack of S tower
 products with curve-level weights becomes one composite weight matrix over
@@ -18,9 +19,11 @@ the S*T base products (T = 4 for Fp2, 9 for Fp3). A negative non-residue is
 folded in by negating the `a` operand of the affected base products, so no
 weight is ever negative.
 
-Every product goes through the field-ops object's `product`, the K5 wrapper
-of its modulus; the ladder kernel's plain version swaps in that wrapper's
-counted `plain` method (ops/cuda_ladder.py).
+Every product goes through the field-ops object's `product`, the route
+dispatcher of its modulus (`StackedProduct`: the switches are read at every
+call, in the reference's order); the plain versions swap in its `plain`
+method, which takes the same route's counted plain version
+(ops/curve.py: plain_group_law).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import math
 import numpy as np
 import torch
 
-from .cuda_mul import stacked_mul_for
+from .cuda_routes import stacked_product_for
 from .fp import FpOps
 
 
@@ -50,8 +53,9 @@ class BaseFieldOps:
 
     def __init__(self, fp: FpOps):
         self.fp = fp
-        # (U, V, weights, rows=None) -> stacked products: K5 (ops/cuda_mul.py)
-        self.product = stacked_mul_for(fp.modulus)
+        # (U, V, weights, rows=None) -> stacked products on the switches'
+        # route (ops/cuda_routes.py)
+        self.product = stacked_product_for(fp.modulus)
         # max #plain-products accumulated per coefficient by one product
         self.prod_nprod = 1
 
@@ -118,8 +122,9 @@ class BaseFieldOps:
     def mul_stacked(self, U, V, weights: tuple, nprod: int):
         """G Montgomery products, each a weighted sum of S stacked products:
         out[:, g] = redc(sum_s weights[g][s] * U_s * V_s). U, V (L, S, *batch)
-        -> (L, G, *batch); one K5 launch on the card. `nprod` is the caller's
-        bound on sum_s weights[g][s] (the reference's REDC bound)."""
+        -> (L, G, *batch); one launch of the route's kernel on the card.
+        `nprod` is the caller's bound on sum_s weights[g][s] (the
+        reference's REDC bound)."""
         assert max(sum(g) for g in weights) <= nprod
         L = U.shape[0]
         Uf, Vf, batch = _flat_batch(U, V, 2)
@@ -132,7 +137,7 @@ class _ExtCommon:
 
     def __init__(self, fp: FpOps, nonresidue: int):
         self.fp = fp
-        self.product = stacked_mul_for(fp.modulus)
+        self.product = stacked_product_for(fp.modulus)
         self.nr = nonresidue if nonresidue <= fp.modulus // 2 else nonresidue - fp.modulus
         self._flat_cache: dict = {}
 
@@ -255,9 +260,10 @@ class _ExtCommon:
         """Ext-field twin of BaseFieldOps.mul_stacked: U, V (L, d, S, *batch)
         -> (L, d, G, *batch). The curve-level weights and the tower products
         flatten into one composite weight matrix (G*d rows over S*T base
-        products) and one K5 launch, which reads the coefficient planes of U
-        and V through row maps and negates where the non-residue is
-        negative."""
+        products) and one launch of the route's kernel, which reads the
+        coefficient planes of U and V through row maps and negates where the
+        non-residue is negative. The route is chosen on the composite
+        weights, as the reference does."""
         assert max(sum(g) for g in weights) * self.prod_nprod <= nprod
         d = self.degree
         L, S = U.shape[0], U.shape[2]

@@ -115,11 +115,12 @@ def _broadcast_rest(sa, sb) -> tuple:
     return tuple(y if x == 1 else x for x, y in zip(sa, sb))
 
 
-def _diag_rect(a: torch.Tensor, b: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+def _diag_rect(a: torch.Tensor, b: torch.Tensor, rows: int | None = None, op=torch.mul) -> torch.Tensor:
     """Column sums of the product of two limb vectors: a (na, *batch) and
-    b (nb, *batch'), broadcastable batches, int64 ->
+    b (nb, *batch'), broadcastable batches, in a's dtype ->
     out[k] = sum_{i+j=k} a[i] * b[j] for k < rows (default na+nb; columns
-    past na+nb-2 are zero) — by strides, no gather.
+    past na+nb-2 are zero) — by strides, no gather. `op(x, y, out=)` in
+    place of `torch.mul` sums another table of the pairs (a[i], b[j]).
 
     The (na, nb) product table is written into a zeroed flat buffer at row
     pitch rows+1; flat index i*(rows+1) + j equals i*rows + (i+j), so
@@ -131,7 +132,7 @@ def _diag_rect(a: torch.Tensor, b: torch.Tensor, rows: int | None = None) -> tor
     rest = _broadcast_rest(a.shape[1:], b.shape[1:])
     flat = torch.zeros(((na + 1) * rows, *rest), dtype=a.dtype, device=a.device)
     table = flat[: na * (rows + 1)].view(na, rows + 1, *rest)[:, :nb]
-    torch.mul(a[:, None], b[None, :], out=table)
+    op(a[:, None], b[None, :], out=table)
     return flat.view(na + 1, rows, *rest).sum(dim=0)
 
 
@@ -248,6 +249,66 @@ class FpOps:
         # s = V + m*N; its low L limbs are 0 mod R, the result is the high half
         s = _resolve_carries(cols + u_cols, bits + 1)
         return self._cond_sub_n(s[L : 2 * L].to(torch.int32))
+
+    # -- the matrix-product reduction (SNARK_SETUP_MXU_STACKED) -------------
+    # Both constant multiplies of REDC, m = t_low * N' mod R and u = m * N,
+    # are products of constant Toeplitz matrices with the 8-bit limb planes
+    # of the operand: terms < 2^16, at most 2 L8 = 4L of them per sum, every
+    # sum < 2^24. Copied from the reference's fp_jax.py
+    # (`_toeplitz8`, `_to8`, `_fold16`, `redc_cols_matmul`).
+    def _toeplitz8(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(T_low (L8, L8), T_full (2 L8, L8)) over 8-bit digits (unblocked
+        layout), float64 on `device`."""
+        key = ("toeplitz8", device)
+        mats = self._dev_consts.get(key)
+        if mats is None:
+            L8 = 2 * self.L
+
+            def l8(v, n):
+                return np.array([(v >> (8 * i)) & 0xFF for i in range(n)], np.float64)
+
+            N8, Np8 = l8(self.modulus, L8), l8(self.spec.n0_inv, L8)
+            ii = np.arange(L8)[None, :]
+            d = np.arange(L8)[:, None] - ii
+            T_low = np.where(d >= 0, Np8[np.clip(d, 0, L8 - 1)], 0.0)
+            d2 = np.arange(2 * L8)[:, None] - ii
+            T_full = np.where((d2 >= 0) & (d2 < L8), N8[np.clip(d2, 0, L8 - 1)], 0.0)
+            mats = self._dev_consts[key] = (torch.from_numpy(T_low).to(device),
+                                            torch.from_numpy(T_full).to(device))
+        return mats
+
+    @staticmethod
+    def _to8(t16: torch.Tensor) -> torch.Tensor:
+        """(R, n) 16-bit limbs -> (2R, n) float64 8-bit limb planes, digit
+        2 i + p = byte p of limb i."""
+        return torch.stack([t16 & 0xFF, (t16 >> 8) & 0xFF], dim=1).reshape(2 * t16.shape[0], -1).double()
+
+    @staticmethod
+    def _fold16(cols8: torch.Tensor) -> torch.Tensor:
+        """(2R, n) base-2^8 columns (integers < 2^24) -> (R, n) int64
+        base-2^16 columns."""
+        c = cols8.to(torch.int64)
+        return c[0::2] + (c[1::2] << 8)
+
+    def redc_cols_matmul(self, cols: torch.Tensor, nprod: int = 1) -> torch.Tensor:
+        """`redc_cols` with the two constant multiplies as matrix products:
+        columns (2L, *batch) of a value < nprod * N^2, each < 2^32 (the
+        stacked-columns kernel's form) -> canonical (L, *batch) int32 limbs.
+
+        The products run in float64, whose exactness for these integers
+        (< 2^24) depends on no global flag (a float32 product on the card
+        may be taken in TF32, which keeps 10 mantissa bits)."""
+        if nprod * self.modulus >= self.spec.mont_r_pow:
+            raise ValueError("REDC bound violated: nprod * N >= R")
+        L = self.L
+        shape = cols.shape
+        flat = cols.reshape(2 * L, -1).to(torch.int64)
+        t = _resolve_carries(flat)
+        T_low, T_full = self._toeplitz8(cols.device)
+        m = _resolve_carries(self._fold16(T_low @ self._to8(t[:L])))
+        u16 = self._fold16(T_full @ self._to8(m))
+        s = _resolve_carries(t + u16, 33)
+        return self._cond_sub_n(s[L:].to(torch.int32)).reshape(L, *shape[1:])
 
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Montgomery product a*b*R^{-1} mod N."""

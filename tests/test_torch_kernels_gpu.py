@@ -153,3 +153,66 @@ def test_group_op_kernels_equal_plain_version_on_the_card(curve, group, B):
     for lane, pt in zip(lanes, got):
         assert pt == hc.add(base[int(ip[lane])] if lane != 3 else base[int(ip[3])],
                             base[int(iq[lane])] if lane != 3 else hc.neg(base[int(ip[3])])), lane
+
+
+# the opt-in routes' kernels K6 (columns), K7 (Toeplitz REDC) and K8 (f32
+# byte planes + Toeplitz REDC) at shapes of the group law: (curve, group
+# whose coordinate field they multiply in, curve-level weights). K8 takes
+# only weights that v2_bounds accepts: degree-1 rounds with small sums.
+ROUTE_SHAPES = {
+    "k6": [("bls12_377", "g2", ((1, 0, 0), (0, 1, 0), (0, 0, 1))),
+           ("mnt4_753", "g2", ((1, 1, 0), (0, 0, 2))),
+           ("mnt6_753", "g2", ((1, 1, 0), (0, 1, 1)))],
+    "k7": [("bls12_377", "g2", ((1, 0, 0), (0, 1, 0), (0, 0, 1))),
+           ("mnt4_753", "g2", ((1, 1, 0), (0, 0, 2))),
+           ("mnt6_753", "g2", ((1, 1, 0), (0, 1, 1)))],
+    "k8": [("bls12_377", "g1", tuple(tuple(int(i == j) for j in range(32)) for i in range(32))),
+           ("bls12_377", "g1", ((1, 2, 0), (0, 0, 3))),
+           ("mnt4_753", "g1", ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1)))],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4097, 16384])
+@pytest.mark.parametrize("route,curve,group,weights",
+                         [(r, *shape) for r, shapes in ROUTE_SHAPES.items() for shape in shapes])
+def test_route_kernels_equal_plain_versions_on_the_card(route, curve, group, weights, B):
+    """K6, K7 and K8 against their plain versions (run on the card in lane
+    chunks), lanes 0, 1, 2 holding 0, 1 and N - 1; K7 and K8 equal K5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.fields.limb import int_to_limbs
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+    dev = torch.device("cuda")
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    if F.degree == 1:
+        comp, rows = weights, (tuple(range(S)),) * 2 + ((0,) * S,)
+    else:
+        comp, rows = F._flattened(weights, S)
+    rng = np.random.default_rng(13)
+
+    def planes():
+        a = rng.integers(0, 1 << 16, size=(fq.L, F.degree * S, B), dtype=np.int64)
+        a[-1] = rng.integers(0, int(fq.N[-1, 0]), size=a.shape[1:])
+        for lane, v in enumerate((0, 1, fq.modulus - 1)):
+            a[:, :, lane] = int_to_limbs(v, fq.L).astype(np.int64)[:, None]
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    U, V = planes(), planes()
+    P = stacked_product_for(fq.modulus)
+    K = getattr(P, route)
+    n = K.launches
+    with torch.no_grad():
+        got = K(U, V, comp, rows)
+        torch.cuda.synchronize()
+        assert K.launches == n + 1
+        Ug, Vg = K.gather(U, V, rows)
+        chunk = 1024
+        want = torch.cat([K.plain_fn(Ug[..., lo:lo + chunk], Vg[..., lo:lo + chunk], comp)
+                          for lo in range(0, B, chunk)], dim=-1)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        if route != "k6":
+            assert torch.equal(got, P.k5(U, V, comp, rows))
