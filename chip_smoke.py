@@ -43,6 +43,12 @@ larger of
     and K8 (u8 x u8 -> s32 on the tensor cores) add 989.5e12 multiply-adds
     /s (the data sheet's 1979 dense int8 TOP/s) on their own unit, the
     units overlapping.
+The group-op kernel's rows (K2, one team of threads per lane on
+csrc/field_team.cuh) time each launch by its own CUDA events (`ms`; the
+wrapper's host time per call exceeds the kernel's, so a loop of calls,
+`call_ms`, measures the host) and also carry the team size (`team`) and
+`lanes_ms`: the kernel's time at the widths the verify path launches (1
+lane, nwin, 1024 and the full batch) beside its bound.
 There is no single PyTorch call that computes any of these functions (a
 batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -149,6 +155,26 @@ def event_ms(fn, repeats: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats
+
+
+def launch_ms(counter, fn, repeats: int) -> float:
+    """Mean device time of one launch in ms: `fn` launches the kernel whose
+    wrapper counter is `counter` once; the mean over `repeats` calls (after
+    one warm-up call) of the wrapper's per-launch (start, end) CUDA events.
+    Host time between launches is not counted, so a narrow launch the host
+    cannot keep up with is timed as the card runs it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    counter.events = []
+    try:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in counter.events) / len(counter.events)
+    finally:
+        counter.events = None
 
 
 def max_abs_diff(a, b) -> int:
@@ -593,6 +619,8 @@ def compare_group_ops(dev, batch: int) -> list[dict]:
 
     from snark_setup_tpu_torch.ops.cuda_group import group_ops_for
     from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops, plain_group_law
+    from snark_setup_tpu_torch.ops.msm import RLC_BITS
+    from snark_setup_tpu_torch.ops.pippenger import PippengerMSM
 
     rows = []
     for ci, (curve, group) in enumerate(CONFIGS):
@@ -620,14 +648,29 @@ def compare_group_ops(dev, batch: int) -> list[dict]:
             raise AssertionError(f"group ops {curve} {group}: kernel differs from plain version "
                                  f"at the verify path's shapes: {path_errs}")
         times = {}
-        for kind, kern, pl in (("dbl", lambda: k2.double(P2), lambda: plain.double(P2)),
-                               ("add", lambda: k2.add(P2, Q2), lambda: plain.add(P2, Q2))):
-            times[kind] = event_ms(kern, 20)
+        for kind, counter, kern, pl in (
+            ("dbl", k2.dbl, lambda: k2.double(P2), lambda: plain.double(P2)),
+            ("add", k2.add_k, lambda: k2.add(P2, Q2), lambda: plain.add(P2, Q2)),
+        ):
+            # the kernel's own time (its launch events), and a loop of whole
+            # calls: the wrapper's host time per call exceeds the kernel's
+            times[kind] = launch_ms(counter, kern, 20)
+            times[kind + "_call"] = event_ms(kern, 20)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pl()
             torch.cuda.synchronize()
             times[kind + "_plain"] = (time.perf_counter() - t0) * 1e3
+        # the widths the verify path launches: one lane (the window combine),
+        # nwin (the bucket finalize), a lane-merge level, a full batch; each
+        # launch timed by its own events (narrow launches outrun the host)
+        nwin = PippengerMSM(ops, batch, RLC_BITS).nwin
+        lanes_ms = {}
+        for w in (1, nwin, 1024, batch):
+            pw = PointVec({k: v[:, :w] for k, v in P2.items()})
+            qw = PointVec({k: v[:, :w] for k, v in Q2.items()})
+            lanes_ms[w] = {"dbl": launch_ms(k2.dbl, lambda: k2.double(pw), 50),
+                           "add": launch_ms(k2.add_k, lambda: k2.add(pw, qw), 50)}
         for kind, counter in (("dbl", k2.dbl), ("add", k2.add_k)):
             b_ms, b_by = bound(*group_work(ops, kind, batch))
             name = f"group_{kind}[{curve}/{group}]"
@@ -635,12 +678,16 @@ def compare_group_ops(dev, batch: int) -> list[dict]:
                 "name": name, "route": "cuda", "source": "snark_setup_tpu_torch/ops/csrc/group_ops.cu",
                 "replaces": "snark_setup_tpu/ops/pallas_group.py:149", "launches": 0,
                 "max_abs_err": errs[kind], "ms": times[kind], "plain_ms": times[kind + "_plain"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "batch": batch,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "batch": batch, "team": k2.team,
+                "call_ms": times[kind + "_call"],
+                "lanes_ms": {w: {"ms": t[kind], "bound_ms": bound(*group_work(ops, kind, w))[0]}
+                             for w, t in lanes_ms.items()},
                 "_wrapper": counter, "_path": f"{curve} verify", "_label": name,
             })
         emit({"phase": "kernels", "config": f"group_ops {curve}/{group}", "batch": batch,
               "ragged_batch": RAGGED, "edge_cases": ["O+Q", "P+O", "P+P", "P+(-P)", "Z!=1", "batch-1 q"],
-              "verify_shapes": sorted(path_errs), "equal": True, "ms": times})
+              "verify_shapes": sorted(path_errs), "equal": True, "team": k2.team, "ms": times,
+              "lanes_ms": lanes_ms})
     return rows
 
 

@@ -1,108 +1,250 @@
 // One complete group operation per lane: doubling (RCB Alg. 9) or addition
-// (RCB Alg. 7) on y^2 = x^3 + b over the field of field.cuh, one thread per
-// lane, one launch per batch operation.
+// (RCB Alg. 7) on y^2 = x^3 + b over the field of field_team.cuh, one TEAM
+// of threads per lane, one launch per batch operation.
 //
 // Replaces the reference's fused group-op kernels (snark_setup_tpu/ops/
 // pallas_group.py, PallasGroupOps.double / .add): those tile the batch over a
 // sequential grid and keep a tile's field glue in on-chip vector memory; here
-// every lane is independent, a thread owns one lane and all field glue
-// (additions, subtractions, negations, the small 3b chains) stays in its
-// registers and local memory. The bodies are group.cuh's gdbl / gadd, the
-// same code the whole-ladder kernel (glv_ladder.cu) runs, so the projective
-// X, Y, Z equal the plain group law (ops/curve.py) limb for limb.
+// every lane is independent and a team of threads of one warp owns it, each
+// thread holding TK = NL / TEAM limbs of every coordinate in registers. The
+// formulas and their order are those of group.cuh (the whole-ladder kernel's)
+// and of the plain group law (ops/curve.py); every field operation returns
+// the canonical value, so the projective X, Y, Z equal the plain group law's
+// limb for limb. 3b is small for every curve in scope (b in {1, -1, 4}), so
+// products by 3b are addition chains: `b3w` = |3b|, `b3neg` = 1 where 3b is
+// negative.
 //
-// The (L, B) 16-bit-limb int32 planes of the package are read and written in
-// place: thread b reads column b of every plane (coalesced across a warp) and
-// packs two 16-bit limbs into one 32-bit limb in registers, so no separate
-// conversion pass runs per launch.
+// Operands are the package's (L, *batch) 16-bit-limb int32 planes, read in
+// place through a per-operand lane layout (Operand): limb plane l of lane b
+// sits at ptr[l * ps + (b / inner) * s1 + (b % inner) * s2]. That takes
+// contiguous batches, a batch-1 operand (s1 = s2 = 0: the Pippenger window
+// combine, sum_reduce's odd tail), broadcasts (a zero stride) and the
+// strided views sum_reduce and the Pippenger lane merge pass (even / odd
+// lanes, the halves of the bucket rows) without a copy. A block of BLOCK
+// threads serves LT = BLOCK / TEAM lanes: it stages its lanes' operands
+// through shared memory (a warp loads consecutive lanes of one plane, and
+// two 16-bit limbs pack into one 32-bit limb), every team reads its slices
+// from there, and the results leave the same way, as (L, B) planes.
 //
-// A second operand of batch 1 (the Pippenger window combine, sum_reduce's
-// odd tail) is read at lane 0 by every thread: `bp` / `bq` are the batch
-// strides of the two operands' planes, each 1 or B.
-//
-// Bound on an H100: integer multiply-add throughput. A doubling is 8 field
-// products (16 NL^2 wide multiply-adds) against 6 L words of traffic, an
-// addition 12 products, 6 of them pairwise under one reduction (21 NL^2),
-// against 9 L words: ~9.7k multiply-adds for 1152 bytes at NL = 24.
+// Bound on an H100: integer multiply-adds at 16384 lanes, and below a few
+// thousand lanes latency — one lane's chain of dependent products. A product
+// is NL rounds of two TK-word multiply-add chains per thread and three
+// shuffles; the team cuts one lane's serial chain by about TEAM against one
+// thread per lane and fills the card with TEAM times the threads, and the
+// independent products of each step share one round loop (two stages per
+// double or add instead of 8 or 9 products in a row).
 #include <cuda_runtime.h>
-#include "group.cuh"
+#include <cstring>
+#include "field_team.cuh"
 
 #define BLOCK 128
+#define LT (BLOCK / TEAM)
 
-__global__ void __launch_bounds__(BLOCK)
-group_dbl_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                 const uint32_t* __restrict__ pz, uint32_t* __restrict__ ox,
-                 uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t B,
-                 uint32_t b3w, uint32_t b3neg) {
-    const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;  // ragged edge: the last block is partly idle
-    Point p, r;
-    load_planes(p.x, px, B, lane);
-    load_planes(p.y, py, B, lane);
-    load_planes(p.z, pz, B, lane);
-    gdbl(&r, &p, b3w, b3neg);
-    store_planes(ox, r.x, B, lane);
-    store_planes(oy, r.y, B, lane);
-    store_planes(oz, r.z, B, lane);
+struct Operand {
+    const uint32_t* ptr;
+    long long ps, inner, s1, s2;  // plane stride; lane b at (b / inner) * s1 + (b % inner) * s2
+};
+
+struct GroupParams {
+    Operand in[6];  // p.x, p.y, p.z (, q.x, q.y, q.z)
+    uint32_t* out[3];
+    long long B;
+    uint32_t b3w, b3neg;
+    TeamConsts fc;
+};
+
+struct TPoint {
+    tfe x, y, z;
+};
+
+// 3b * a = ±|3b| * a
+__device__ __forceinline__ void team_mul_b3(const Team& tm, tfe& r, const tfe& a, uint32_t b3w, uint32_t b3neg) {
+    team_small_mul(tm, r, a, b3w);
+    if (b3neg) team_fneg(tm, r, r);  // uniform across the launch
 }
 
-__global__ void __launch_bounds__(BLOCK)
-group_add_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                 const uint32_t* __restrict__ pz, const uint32_t* __restrict__ qx,
-                 const uint32_t* __restrict__ qy, const uint32_t* __restrict__ qz,
-                 uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                 uint32_t* __restrict__ oz, int64_t B, int64_t bp, int64_t bq,
-                 uint32_t b3w, uint32_t b3neg) {
-    const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    const int64_t lp = bp == 1 ? 0 : lane;
-    const int64_t lq = bq == 1 ? 0 : lane;
-    Point p, q, r;
-    load_planes(p.x, px, bp, lp);
-    load_planes(p.y, py, bp, lp);
-    load_planes(p.z, pz, bp, lp);
-    load_planes(q.x, qx, bq, lq);
-    load_planes(q.y, qy, bq, lq);
-    load_planes(q.z, qz, bq, lq);
-    gadd(&r, &p, &q, b3w, b3neg);
-    store_planes(ox, r.x, B, lane);
-    store_planes(oy, r.y, B, lane);
-    store_planes(oz, r.z, B, lane);
+// Algorithm 7: 12 products + 2 constant chains, 9 reductions (the last six
+// products pairwise under one reduction each), issued in two stages of
+// independent products (six, then three pairs) so that their chains overlap.
+__device__ __forceinline__ void team_gadd(const Team& tm, TPoint& r, const TPoint& p, const TPoint& q,
+                                          uint32_t b3w, uint32_t b3neg) {
+    uint32_t a6[6][1][TK], b6[6][1][TK];
+    tset(a6[0][0], p.x); tset(b6[0][0], q.x);
+    tset(a6[1][0], p.y); tset(b6[1][0], q.y);
+    tset(a6[2][0], p.z); tset(b6[2][0], q.z);
+    team_fadd(tm, a6[3][0], p.x, p.y); team_fadd(tm, b6[3][0], q.x, q.y);
+    team_fadd(tm, a6[4][0], p.x, p.z); team_fadd(tm, b6[4][0], q.x, q.z);
+    team_fadd(tm, a6[5][0], p.y, p.z); team_fadd(tm, b6[5][0], q.y, q.z);
+    tfe t[6];  // X1X2, Y1Y2, Z1Z2, then the three products of sums
+    team_mont<6, 1>(tm, t, a6, b6);
+    tfe u;
+    team_fadd(tm, u, t[0], t[1]); team_fsub(tm, t[3], t[3], u);  // X1Y2 + X2Y1
+    team_fadd(tm, u, t[0], t[2]); team_fsub(tm, t[4], t[4], u);  // X1Z2 + X2Z1
+    team_fadd(tm, u, t[1], t[2]); team_fsub(tm, t[5], t[5], u);  // Y1Z2 + Y2Z1
+    tfe z3, t4b, t1n, x3, z3p, t5n;
+    team_mul_b3(tm, z3, t[2], b3w, b3neg);   // 3b Z1Z2
+    team_mul_b3(tm, t4b, t[4], b3w, b3neg);  // 3b (X1Z2 + X2Z1)
+    team_fadd(tm, t1n, t[0], t[0]); team_fadd(tm, t1n, t1n, t[0]);  // 3 X1X2
+    team_fsub(tm, x3, t[1], z3);
+    team_fadd(tm, z3p, t[1], z3);
+    team_fneg(tm, t5n, t[5]);
+    uint32_t a3[3][2][TK], b3[3][2][TK];
+    tset(a3[0][0], x3);   tset(b3[0][0], z3p); tset(a3[0][1], t1n);  tset(b3[0][1], t4b);  // Y3
+    tset(a3[1][0], t[3]); tset(b3[1][0], x3);  tset(a3[1][1], t5n);  tset(b3[1][1], t4b);  // X3
+    tset(a3[2][0], t[5]); tset(b3[2][0], z3p); tset(a3[2][1], t[3]); tset(b3[2][1], t1n);  // Z3
+    tfe o[3];
+    team_mont<3, 2>(tm, o, a3, b3);
+    tset(r.y, o[0]);
+    tset(r.x, o[1]);
+    tset(r.z, o[2]);
 }
 
-// Plain C entry points (loaded with ctypes). `consts` is a DEVICE pointer to
-// the FieldConsts words (N, R mod N, beta, n0); they are copied to constant
-// memory on `stream` ahead of the launch (device to device, stream-ordered),
-// so launches for different moduli on one stream stay ordered. Each returns
-// cudaGetLastError().
-extern "C" int group_dbl_launch(const void* px, const void* py, const void* pz, void* ox,
-                                void* oy, void* oz, long long B, unsigned b3w, unsigned b3neg,
-                                const void* consts, void* stream) {
+// Algorithm 9 with c = 3b Z^2 folded into the first round as Z * (|3b| Z):
+// 8 products and reductions, in two stages of four independent products.
+__device__ __forceinline__ void team_gdbl(const Team& tm, TPoint& r, const TPoint& p, uint32_t b3w,
+                                          uint32_t b3neg) {
+    tfe wz;
+    team_small_mul(tm, wz, p.z, b3w);
+    uint32_t a4[4][1][TK], b4[4][1][TK];
+    tset(a4[0][0], p.y); tset(b4[0][0], p.y);
+    tset(a4[1][0], p.y); tset(b4[1][0], p.z);
+    tset(a4[2][0], p.x); tset(b4[2][0], p.y);
+    tset(a4[3][0], p.z); tset(b4[3][0], wz);
+    tfe t[4];  // Y^2, YZ, XY, c = 3b Z^2 (its sign below)
+    team_mont<4, 1>(tm, t, a4, b4);
+    if (b3neg) team_fneg(tm, t[3], t[3]);  // uniform across the launch
+    tfe z3a, c3, t0p, ysum;
+    team_fadd(tm, z3a, t[0], t[0]); team_fadd(tm, z3a, z3a, z3a); team_fadd(tm, z3a, z3a, z3a);  // 8 Y^2
+    team_fadd(tm, c3, t[3], t[3]); team_fadd(tm, c3, c3, t[3]);
+    team_fsub(tm, t0p, t[0], c3);
+    team_fadd(tm, ysum, t[0], t[3]);
+    tset(a4[0][0], t[3]); tset(b4[0][0], z3a);   // c * 8Y^2
+    tset(a4[1][0], t0p);  tset(b4[1][0], ysum);
+    tset(a4[2][0], t0p);  tset(b4[2][0], t[2]);
+    tset(a4[3][0], t[1]); tset(b4[3][0], z3a);   // Z3
+    tfe o[4];
+    team_mont<4, 1>(tm, o, a4, b4);
+    team_fadd(tm, r.x, o[2], o[2]);
+    team_fadd(tm, r.y, o[0], o[1]);
+    tset(r.z, o[3]);
+}
+
+// Stage the first NIN operands of the block's LT lanes into box[o][lane][word].
+template <int NIN>
+__device__ __forceinline__ void stage_in(const GroupParams& p, uint32_t (*box)[LT][NL + 1], long long lane0) {
+    const int l = threadIdx.x % LT, j0 = threadIdx.x / LT;  // BLOCK / LT == TEAM word rows per pass
+    const long long b = lane0 + l;
+    const bool live = b < p.B;
+#pragma unroll
+    for (int o = 0; o < NIN; ++o) {
+        const Operand& op = p.in[o];
+        long long off = 0;
+        if (live) {  // lanes and inner sizes are below 2^31 (the wrapper checks): 32-bit division
+            const unsigned ub = (unsigned)b, ui = (unsigned)op.inner;
+            off = (long long)(ub / ui) * op.s1 + (long long)(ub % ui) * op.s2;
+        }
+#pragma unroll
+        for (int s = 0; s < TK; ++s) {
+            const int j = j0 + TEAM * s;
+            uint32_t w = 0;
+            if (live) {
+                const uint32_t lo = op.ptr[(long long)(2 * j) * op.ps + off];
+                const uint32_t hi = op.ptr[(long long)(2 * j + 1) * op.ps + off];
+                w = (lo & 0xFFFFu) | (hi << 16);
+            }
+            box[o][l][j] = w;
+        }
+    }
+}
+
+__device__ __forceinline__ void stage_out(const GroupParams& p, uint32_t (*box)[LT][NL + 1], long long lane0) {
+    const int l = threadIdx.x % LT, j0 = threadIdx.x / LT;
+    const long long b = lane0 + l;
+    if (b >= p.B) return;  // after the last barrier: no collective follows
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+#pragma unroll
+        for (int s = 0; s < TK; ++s) {
+            const int j = j0 + TEAM * s;
+            const uint32_t w = box[o][l][j];
+            p.out[o][(long long)(2 * j) * p.B + b] = w & 0xFFFFu;
+            p.out[o][(long long)(2 * j + 1) * p.B + b] = w >> 16;
+        }
+    }
+}
+
+template <bool ADD>
+__global__ void __launch_bounds__(BLOCK) group_kernel(const __grid_constant__ GroupParams p) {
+    __shared__ uint32_t box[ADD ? 6 : 3][LT][NL + 1];
+    const Team tm = team_init(p.fc);
+    const long long lane0 = (long long)blockIdx.x * LT;
+    stage_in<ADD ? 6 : 3>(p, box, lane0);
+    __syncthreads();
+    // lanes past B compute on zeros (every thread takes part in the
+    // team's shuffles) and are not stored
+    const int team = threadIdx.x / TEAM;
+    TPoint a, r;
+    team_from_box(tm, a.x, box[0], team);
+    team_from_box(tm, a.y, box[1], team);
+    team_from_box(tm, a.z, box[2], team);
+    if (ADD) {
+        TPoint b;
+        team_from_box(tm, b.x, box[3], team);
+        team_from_box(tm, b.y, box[4], team);
+        team_from_box(tm, b.z, box[5], team);
+        team_gadd(tm, r, a, b, p.b3w, p.b3neg);
+    } else {
+        team_gdbl(tm, r, a, p.b3w, p.b3neg);
+    }
+    __syncthreads();
+    team_to_box(tm, box[0], team, r.x);
+    team_to_box(tm, box[1], team, r.y);
+    team_to_box(tm, box[2], team, r.z);
+    __syncthreads();
+    stage_out(p, box, lane0);
+}
+
+// Plain C entry points (loaded with ctypes). `operands` holds five int64
+// per input (pointer, ps, inner, s1, s2: p.x, p.y, p.z, then q.x, q.y, q.z
+// for the addition); `ox`, `oy`, `oz` are contiguous (L, B) planes; `consts`
+// is a HOST pointer to a TeamConsts block. Each returns cudaGetLastError().
+static int launch(bool add, const long long* operands, void* ox, void* oy, void* oz, long long B,
+                  unsigned b3w, unsigned b3neg, const void* consts, void* stream) {
+    GroupParams p;
+    memset(&p, 0, sizeof p);
+    for (int o = 0; o < (add ? 6 : 3); ++o) {
+        const long long* d = operands + 5 * o;
+        p.in[o].ptr = (const uint32_t*)(uintptr_t)d[0];
+        p.in[o].ps = d[1];
+        p.in[o].inner = d[2];
+        p.in[o].s1 = d[3];
+        p.in[o].s2 = d[4];
+    }
+    p.out[0] = (uint32_t*)ox;
+    p.out[1] = (uint32_t*)oy;
+    p.out[2] = (uint32_t*)oz;
+    p.B = B;
+    p.b3w = b3w;
+    p.b3neg = b3neg;
+    memcpy(&p.fc, consts, sizeof(TeamConsts));
+    const unsigned blocks = (unsigned)((B + LT - 1) / LT);
     cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemcpyToSymbolAsync(FC, consts, sizeof(FieldConsts), 0,
-                                              cudaMemcpyDeviceToDevice, s);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((B + BLOCK - 1) / BLOCK);
-    group_dbl_kernel<<<blocks, BLOCK, 0, s>>>(
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (uint32_t*)ox,
-        (uint32_t*)oy, (uint32_t*)oz, (int64_t)B, b3w, b3neg);
+    if (add)
+        group_kernel<true><<<blocks, BLOCK, 0, s>>>(p);
+    else
+        group_kernel<false><<<blocks, BLOCK, 0, s>>>(p);
     return (int)cudaGetLastError();
 }
 
-extern "C" int group_add_launch(const void* px, const void* py, const void* pz, const void* qx,
-                                const void* qy, const void* qz, void* ox, void* oy, void* oz,
-                                long long B, long long bp, long long bq, unsigned b3w,
-                                unsigned b3neg, const void* consts, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemcpyToSymbolAsync(FC, consts, sizeof(FieldConsts), 0,
-                                              cudaMemcpyDeviceToDevice, s);
-    if (err != cudaSuccess) return (int)err;
-    const unsigned blocks = (unsigned)((B + BLOCK - 1) / BLOCK);
-    group_add_kernel<<<blocks, BLOCK, 0, s>>>(
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)qx,
-        (const uint32_t*)qy, (const uint32_t*)qz, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz,
-        (int64_t)B, (int64_t)bp, (int64_t)bq, b3w, b3neg);
-    return (int)cudaGetLastError();
+extern "C" int group_dbl_launch(const long long* operands, void* ox, void* oy, void* oz, long long B,
+                                unsigned b3w, unsigned b3neg, const void* consts, void* stream) {
+    return launch(false, operands, ox, oy, oz, B, b3w, b3neg, consts, stream);
+}
+
+extern "C" int group_add_launch(const long long* operands, void* ox, void* oy, void* oz, long long B,
+                                unsigned b3w, unsigned b3neg, const void* consts, void* stream) {
+    return launch(true, operands, ox, oy, oz, B, b3w, b3neg, consts, stream);
 }
 
 extern "C" int group_ops_nl(void) { return NL; }
+extern "C" int group_ops_team(void) { return TEAM; }

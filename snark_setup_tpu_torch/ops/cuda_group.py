@@ -12,6 +12,13 @@ canonical, so their projective X, Y, Z agree limb for limb.
 Scope: degree-1 coordinates with a = 0 and a small |3b| (G1 of BLS12-377 /
 381, both groups of BW6-761), as the reference's kernels assert; other
 groups raise. Replaces the reference's PallasGroupOps (ops/pallas_group.py).
+
+The kernel runs on the cooperative layer of ``csrc/field_team.cuh`` (a team
+of threads per lane) and reads every operand in place through its lane
+layout (`lane_layout`): contiguous batches, batch-1 operands, broadcasts and
+the strided views that `sum_reduce` and the Pippenger lane merge pass, with
+no copy. Only a view whose batch axes need more than two strided levels is
+copied first.
 """
 
 from __future__ import annotations
@@ -24,6 +31,42 @@ import numpy as np
 import torch
 
 from .curve import PointVec, plain_group_law
+
+MAX_LANES = (1 << 31) - 1  # the kernel splits lane indices with 32-bit division
+
+
+def team_consts(fq) -> np.ndarray:
+    """csrc/field_team.cuh's TeamConsts block as uint32 words: N (NL
+    words), R mod N (NL words), n0 = -N^{-1} mod 2^32."""
+    NL, q = fq.L // 2, fq.modulus
+
+    def words(v: int) -> list[int]:
+        return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(NL)]
+
+    n0 = (-pow(q, -1, 1 << 32)) % (1 << 32)
+    return np.array(words(q) + words(fq.spec.mont_r % q) + [n0], np.uint32)
+
+
+def lane_layout(shape, strides) -> tuple[int, int, int] | None:
+    """(inner, s1, s2) such that lane b of the flattened batch axes
+    (`shape`, element `strides`) sits at storage offset
+    (b // inner) * s1 + (b % inner) * s2: the axes merged into at most two
+    strided levels. None where the view needs more levels."""
+    dims: list[tuple[int, int]] = []
+    for n, st in zip(shape, strides):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == st * n:
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    if not dims:
+        return 1, 0, 0
+    if len(dims) == 1:
+        return dims[0][0], 0, dims[0][1]
+    if len(dims) == 2:
+        return dims[1][0], dims[0][1], dims[1][1]
+    return None
 
 
 class _Kernel:
@@ -52,22 +95,14 @@ class GroupOps:
         fq = ops.fq
         self.L = fq.L
         self.NL = fq.L // 2
-        q = fq.modulus
         # the shared-reduction product (fmul2) and the plain additions need 2N < R
-        if 2 * q >= fq.spec.mont_r_pow:
+        if 2 * fq.modulus >= fq.spec.mont_r_pow:
             raise ValueError("modulus too close to R for the group-op kernels")
         self.b3w, b3neg = ops._b3_small
         self.b3neg = int(b3neg)
-
-        def words(v: int) -> list[int]:
-            return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)]
-
-        # field.cuh's FieldConsts: N, R mod N, beta (unused here), n0
-        n0 = (-pow(q, -1, 1 << 32)) % (1 << 32)
-        consts = words(q) + words(fq.spec.mont_r % q) + [0] * self.NL + [n0]
-        self._consts_np = np.array(consts, np.uint32).view(np.int32)
-        self._consts_dev: dict = {}
+        self._consts_host = team_consts(fq)  # by value into the kernel's parameter
         self._fns: dict = {}
+        self.team: int | None = None  # threads per lane, read from the library at first launch
         self.dbl = _Kernel("group_dbl")
         self.add_k = _Kernel("group_add")
 
@@ -85,16 +120,21 @@ class GroupOps:
                 raise ValueError(f"{what}: coordinates on different devices")
         return x.shape[1:]
 
-    def _planes(self, c: torch.Tensor, batch, B: int) -> tuple[torch.Tensor, int]:
-        """(L, B') contiguous planes of one coordinate and its batch stride
-        B' (1 or B): a batch-1 operand is read at lane 0 by every thread,
-        any other broadcast is materialised."""
-        n = math.prod(c.shape[1:])
-        if n == 1:
-            return c.reshape(self.L, 1).contiguous(), 1
-        if c.shape[1:] != batch:
-            c = c.expand(self.L, *batch)
-        return c.reshape(self.L, B).contiguous(), B
+    def operand(self, c: torch.Tensor, batch) -> tuple[torch.Tensor, list[int]]:
+        """One coordinate as the kernel reads it: the tensor (kept alive
+        for the launch) and its descriptor [pointer, plane stride, inner,
+        s1, s2] (`lane_layout` of the view broadcast to `batch`). A batch-1
+        operand gets zero strides; a view of three or more unmergeable
+        strided levels is copied to contiguous planes first (no caller of
+        the package passes one)."""
+        if math.prod(c.shape[1:]) == 1:
+            return c, [c.data_ptr(), c.stride(0), 1, 0, 0]
+        v = c.expand(self.L, *batch) if c.shape[1:] != batch else c
+        lay = lane_layout(v.shape[1:], v.stride()[1:])
+        if lay is None:
+            v = v.contiguous()
+            lay = lane_layout(v.shape[1:], v.stride()[1:])
+        return v, [v.data_ptr(), v.stride(0), *lay]
 
     # -- entry points --------------------------------------------------------
     def double(self, p: PointVec) -> PointVec:
@@ -105,9 +145,7 @@ class GroupOps:
             return plain_group_law(self.ops).double(p)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
-        B = math.prod(batch)
-        ins = [self._planes(p[k], batch, B)[0] for k in "xyz"]
-        return self._launch("dbl", ins, batch, B, (B,))
+        return self._launch("dbl", [self.operand(p[k], batch) for k in "xyz"], batch)
 
     def add(self, p: PointVec, q: PointVec) -> PointVec:
         pb, qb = self._batch_of(p, "add: p"), self._batch_of(q, "add: q")
@@ -120,11 +158,7 @@ class GroupOps:
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         batch = torch.broadcast_shapes(pb, qb)
-        B = math.prod(batch)
-        ps = [self._planes(p[k], batch, B) for k in "xyz"]
-        qs = [self._planes(q[k], batch, B) for k in "xyz"]
-        ins = [t for t, _ in ps] + [t for t, _ in qs]
-        return self._launch("add", ins, batch, B, (B, ps[0][1], qs[0][1]))
+        return self._launch("add", [self.operand(t[k], batch) for t in (p, q) for k in "xyz"], batch)
 
     # -- launch ------------------------------------------------------------
     def _launch_fn(self, kind: str):
@@ -138,28 +172,26 @@ class GroupOps:
             lib = load(target)
             if lib.group_ops_nl() != self.NL:
                 raise RuntimeError(f"{target} was built for another limb count")
-            if kind == "dbl":
-                fn = lib.group_dbl_launch
-                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_uint] * 2 + [
-                    ctypes.c_void_p] * 2
-            else:
-                fn = lib.group_add_launch
-                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 3 + [ctypes.c_uint] * 2 + [
-                    ctypes.c_void_p] * 2
+            self.team = lib.group_ops_team()
+            fn = lib.group_dbl_launch if kind == "dbl" else lib.group_add_launch
+            # operand descriptors, ox, oy, oz, B, b3w, b3neg, constants, stream
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_uint] * 2 + [
+                ctypes.c_void_p] * 2
             fn.restype = ctypes.c_int
             self._fns[kind] = fn
         return fn
 
-    def _launch(self, kind: str, ins, batch, B: int, sizes) -> PointVec:
-        dev = ins[0].device
+    def _launch(self, kind: str, ins, batch) -> PointVec:
+        dev = ins[0][0].device
+        B = math.prod(batch)
+        if B > MAX_LANES:
+            raise ValueError(f"at most {MAX_LANES} lanes a launch, got {B}")
         out = [torch.empty((self.L, B), dtype=torch.int32, device=dev) for _ in range(3)]
         shaped = lambda: PointVec(x=out[0].view(self.L, *batch), y=out[1].view(self.L, *batch),
                                   z=out[2].view(self.L, *batch))
         if B == 0:
             return shaped()
-        consts = self._consts_dev.get(dev)
-        if consts is None:
-            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
+        desc = np.array([d for _, d in ins], dtype=np.int64)
         counter = self.dbl if kind == "dbl" else self.add_k
         fn = self._launch_fn(kind)
         stream = torch.cuda.current_stream(dev)
@@ -168,8 +200,8 @@ class GroupOps:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(stream)
             err = fn(
-                *(t.data_ptr() for t in ins), *(o.data_ptr() for o in out), *sizes,
-                self.b3w, self.b3neg, consts.data_ptr(), stream.cuda_stream,
+                desc.ctypes.data, *(o.data_ptr() for o in out), B, self.b3w, self.b3neg,
+                self._consts_host.ctypes.data, stream.cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"{counter.name} kernel launch failed: CUDA error {err}")

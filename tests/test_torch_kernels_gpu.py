@@ -146,8 +146,15 @@ def test_group_op_kernels_equal_plain_version_on_the_card(curve, group, B):
             got, want = k2.add(p, q), plain.add(p, q)
             for k in "xyz":
                 assert torch.equal(got[k], want[k]), ("add", k)
+        # sum_reduce's strided even / odd lanes, read in place
+        half = B // 2
+        even = PointVec({k: v[:, 0:2 * half:2] for k, v in P2.items()})
+        odd = PointVec({k: v[:, 1:2 * half:2] for k, v in P2.items()})
+        got, want = k2.add(even, odd), plain.add(even, odd)
+        for k in "xyz":
+            assert torch.equal(got[k], want[k]), ("add even / odd", k)
     torch.cuda.synchronize()
-    assert (k2.dbl.launches, k2.add_k.launches) == (n_dbl + 2, n_add + 3)
+    assert (k2.dbl.launches, k2.add_k.launches) == (n_dbl + 2, n_add + 4)
     lanes = [0, 1, 2, 3, B - 1]
     got = ops.to_affine_host(PointVec({k: v[:, lanes].contiguous() for k, v in k2.add(P, Q).items()}))
     for lane, pt in zip(lanes, got):
@@ -216,3 +223,112 @@ def test_route_kernels_equal_plain_versions_on_the_card(route, curve, group, wei
         assert got.dtype == want.dtype and torch.equal(got, want)
         if route != "k6":
             assert torch.equal(got, P.k5(U, V, comp, rows))
+
+
+def _points_on_card(ops, n, rng, dev):
+    """n seeded points, lane 0 the point at infinity, as projective Z != 1
+    planes (doubled by the plain group law)."""
+    from snark_setup_tpu_torch.ops.curve import plain_group_law
+
+    hc = ops.host_curve
+    base = [INFINITY] + [hc.mul(hc.generator, int(k)) for k in rng.integers(1, 1 << 30, 15)]
+    table = ops.from_affine_host(base, dev)
+    idx = torch.from_numpy(rng.integers(0, 16, n)).to(dev)
+    return plain_group_law(ops).double(PointVec({k: v[:, idx].contiguous() for k, v in table.items()}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 2, "T-1", "T+1", 31, 33])
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_group_op_kernels_at_narrow_widths_and_views_on_the_card(curve, group, width):
+    """K2 at the verify path's narrow widths (the team size T of the limb
+    count, T +- 1, a warp +- 1), on contiguous operands, a batch-1 second
+    operand, sum_reduce's strided even / odd lanes of a (3, 2w + 1) batch,
+    a Pippenger half of bucket rows and a row broadcast over windows;
+    every result equal to the plain group law's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_group import group_ops_for
+    from snark_setup_tpu_torch.ops.curve import plain_group_law
+
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    k2, plain = group_ops_for(curve, group), plain_group_law(ops)
+    rng = np.random.default_rng(11)
+    with torch.no_grad():
+        warm = _points_on_card(ops, 1, rng, dev)
+        k2.double(warm)  # loads the library: k2.team
+        T = k2.team
+        w = {"T-1": T - 1, "T+1": T + 1}.get(width, width)
+        P, Q = _points_on_card(ops, w, rng, dev), _points_on_card(ops, w, rng, dev)
+        big = _points_on_card(ops, 3 * (2 * w + 1), rng, dev)
+        rows = PointVec({k: v.reshape(ops.fq.L, 3, 2 * w + 1) for k, v in big.items()})
+        buckets = PointVec({k: v.reshape(ops.fq.L, 3, 1, 2 * w + 1)[..., :2 * w] for k, v in big.items()})
+        cases = [
+            ("double", (P,)),
+            ("add", (P, Q)),
+            ("add", (P, PointVec({k: v[:, :1] for k, v in Q.items()}))),  # batch-1 q
+            ("add", (PointVec({k: v[..., 0:2 * w:2] for k, v in rows.items()}),
+                     PointVec({k: v[..., 1:2 * w:2] for k, v in rows.items()}))),  # even / odd
+            ("add", (PointVec({k: v[..., :w] for k, v in buckets.items()}),
+                     PointVec({k: v[..., w:2 * w] for k, v in buckets.items()}))),  # lane-merge halves
+            ("add", (PointVec({k: v[:, None, :] .expand(ops.fq.L, 3, w) for k, v in P.items()}),
+                     PointVec({k: v[..., :w] for k, v in rows.items()}))),  # broadcast over windows
+            ("double", (PointVec({k: v[..., 1:2 * w:2] for k, v in rows.items()}),)),
+        ]
+        for kind, args in cases:
+            got = getattr(k2, kind)(*args)
+            want = getattr(plain, kind)(*args)
+            for k in "xyz":
+                assert got[k].shape == want[k].shape and torch.equal(got[k], want[k]), (kind, k)
+    torch.cuda.synchronize()
+
+
+STACKED_MAIN = [  # chip_smoke.py's STACKED shapes: (curve, group, weights)
+    ("bls12_377", "g2", tuple(tuple(int(i == j) for j in range(6)) for i in range(6))),
+    ("bls12_377", "g1", tuple(tuple(int(i == j) for j in range(32)) for i in range(32))),
+    ("mnt4_753", "g1", ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 1, 0), (0, 0, 0, 0, 0, 1))),
+    ("mnt4_753", "g2", ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 1, 0), (0, 0, 0, 0, 0, 1))),
+    ("mnt6_753", "g2", tuple(tuple(int(i == j) for j in range(6)) for i in range(6))),
+    ("mnt6_753", "g2", ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1))),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33, 4097])
+@pytest.mark.parametrize("curve,group,weights", STACKED_MAIN)
+def test_stacked_mul_kernel_at_the_main_path_shapes_on_the_card(curve, group, weights, B):
+    """K5 at every shape chip_smoke.py holds it at, with the edge values 0,
+    1 and N - 1 in lanes 0, 1, 2 of every row (as far as the width goes),
+    equal to the plain version (run in lane chunks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.fields.limb import int_to_limbs
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for, stacked_mul_plain
+
+    dev = torch.device("cuda")
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    if F.degree == 1:
+        comp, rows = weights, (tuple(range(S)),) * 2 + ((0,) * S,)
+    else:
+        comp, rows = F._flattened(weights, S)
+    rng = np.random.default_rng(17)
+
+    def planes():
+        a = rng.integers(0, 1 << 16, size=(fq.L, F.degree * S, B), dtype=np.int64)
+        a[-1] = rng.integers(0, int(fq.N[-1, 0]), size=a.shape[1:])
+        for lane, v in enumerate((0, 1, fq.modulus - 1)[:B]):
+            a[:, :, lane] = int_to_limbs(v, fq.L).astype(np.int64)[:, None]
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    U, V = planes(), planes()
+    K = stacked_mul_for(fq.modulus)
+    with torch.no_grad():
+        got = K(U, V, comp, rows)
+        Ug, Vg = K.gather(U, V, rows)
+        want = torch.cat([stacked_mul_plain(fq, Ug[..., lo:lo + 256], Vg[..., lo:lo + 256], comp)
+                          for lo in range(0, B, 256)], dim=-1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
