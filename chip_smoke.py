@@ -48,13 +48,23 @@ csrc/field_team.cuh) time each launch by its own CUDA events (`ms`; the
 wrapper's host time per call exceeds the kernel's, so a loop of calls,
 `call_ms`, measures the host) and also carry the team size (`team`) and
 `lanes_ms`: the kernel's time at the widths the verify path launches (1
-lane, nwin, 1024 and the full batch) beside its bound.
+lane, nwin, 1024 and the full batch) beside its bound. The digits and
+ladder kernels' rows (K3, K4; the ladder one team of threads per lane on
+the same layer, each thread's slice of the tables in local memory) time
+each launch the same way (`call_ms` for the digits) and carry
+`launches_by_width`; the digits rows also the library's compile-time
+`geometry`, the ladder's rows `team` and `lanes_ms`: its time at every
+width the main path launched and at 1 lane.
+After the default paths it runs BLS12-377 contributions in the modes they
+do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (two
+chunks) and Marlin `contribute`, each checked against the host oracle and
+the hash chain, with K3 and K4 launched on each.
 There is no single PyTorch call that computes any of these functions (a
 batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 
 With `--sweep` it also times the ladder kernel at batch 2^12 .. 2^17 (how far
-one thread per lane fills the card at the batch sizes a ceremony uses).
+a launch fills the card at the batch sizes a ceremony uses).
 `--power` sets the size of the BW6-761 and BLS12-377 contribute phases, the
 BLS12-377 route paths and the BW6-761 verify path (default 16); the MNT
 phases run at MNT_POWER (14), one full batch per G2 section, the BLS12-377
@@ -84,6 +94,7 @@ SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
 BLS_VERIFY_POWER = 14  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds)
+MODES_POWER = 12  # the BLS12-377 beacon, chunked and Marlin contributions
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
 CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))  # K2, K3, K4
 DIGITS_ONLY = (("bls12_377", "g2"),)  # K3 feeds the ladder over the group law there
@@ -214,7 +225,10 @@ def make_inputs(ops, B: int, rng, dev, edge: bool, projective: bool):
 
 def kernel_work(ops, dig, lad, B: int) -> dict:
     """Bytes and integer multiply-adds of one launch of each kernel at
-    batch B, from the shapes alone."""
+    batch B, from the shapes alone. The ladder's bytes are its inputs and
+    outputs only: its 16-entry tables (64 NL words a lane, written once and
+    scanned whole twice a window, in local memory) are no traffic of the
+    function it computes."""
     g = ops.glv
     Ls, nwin = dig.Ls, dig.nwin
     # digits: k x mu products and c x coeff products on 16-bit limbs
@@ -283,8 +297,11 @@ def compare_kernels(dev, batch: int) -> list[dict]:
             if any(errs.values()):
                 raise AssertionError(f"{curve} {group} B={B}: kernel differs from plain version: {errs}")
         # timings at the main path's shape (the last inputs made)
-        times["digits"] = event_ms(lambda: dig(scalars), 20)
-        times["ladder"] = event_ms(lambda: lad(pts, *got_d), 3)
+        # each kernel by its own launch events (a digits call's host time
+        # can exceed its kernel's: `call_ms` times a loop of whole calls)
+        times["digits"] = launch_ms(dig, lambda: dig(scalars), 20)
+        times["digits_call"] = event_ms(lambda: dig(scalars), 20)
+        times["ladder"] = launch_ms(lad, lambda: lad(pts, *got_d), 3)
         work = kernel_work(ops, dig, lad, batch)
         for name, wrapper, source, replaces, key in (
             ("glv_digits", dig, "snark_setup_tpu_torch/ops/csrc/glv_digits.cu",
@@ -297,12 +314,14 @@ def compare_kernels(dev, batch: int) -> list[dict]:
                 "name": f"{name}[{curve}/{group}]", "route": "cuda", "source": source,
                 "replaces": replaces, "launches": 0, "max_abs_err": errs[name],
                 "ms": times[key], "plain_ms": times[key + "_plain"], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None, "batch": batch, "_wrapper": wrapper,
-                "_path": "bw6_761", "_label": f"{name}[{curve}/{group}]",
+                "bound_by": b_by, "library_ms": None, "batch": batch,
+                **({"geometry": wrapper.geometry, "call_ms": times["digits_call"]} if key == "digits"
+                   else {"team": wrapper.team}),
+                "_wrapper": wrapper, "_path": "bw6_761", "_label": f"{name}[{curve}/{group}]",
             })
         emit({"phase": "kernels", "config": f"{curve}/{group}", "batch": batch,
               "ragged_batch": RAGGED, "equal": True,
-              "ms": {k: times[k] for k in ("digits", "digits_plain", "ladder", "ladder_plain")}})
+              "ms": {k: times[k] for k in ("digits", "digits_call", "digits_plain", "ladder", "ladder_plain")}})
     for ci, (curve, group) in enumerate(DIGITS_ONLY):
         ops = curve_ops(curve, group)
         dig = glv_digits_for(curve, group)
@@ -319,17 +338,18 @@ def compare_kernels(dev, batch: int) -> list[dict]:
             err = max(err, *(max_abs_diff(a, b) for a, b in zip(got_d, want_d)))
             if err:
                 raise AssertionError(f"{curve} {group} B={B}: digits kernel differs from plain version")
-        ms = event_ms(lambda: dig(scalars), 20)
+        ms, call_ms = launch_ms(dig, lambda: dig(scalars), 20), event_ms(lambda: dig(scalars), 20)
         b_ms, b_by = bound(*kernel_work(ops, dig, None, batch)["glv_digits"])
         rows.append({
             "name": f"glv_digits[{curve}/{group}]", "route": "cuda",
             "source": "snark_setup_tpu_torch/ops/csrc/glv_digits.cu",
             "replaces": "snark_setup_tpu/ops/pallas_glv.py:215", "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "batch": batch, "_wrapper": dig, "_path": curve, "_label": f"glv_digits[{curve}/{group}]",
+            "batch": batch, "geometry": dig.geometry, "call_ms": call_ms, "_wrapper": dig, "_path": curve,
+            "_label": f"glv_digits[{curve}/{group}]",
         })
         emit({"phase": "kernels", "config": f"{curve}/{group}", "batch": batch, "ragged_batch": RAGGED,
-              "equal": True, "ms": {"digits": ms, "digits_plain": plain_ms}})
+              "equal": True, "ms": {"digits": ms, "digits_call": call_ms, "digits_plain": plain_ms}})
     return rows
 
 
@@ -722,23 +742,27 @@ def scalar_mul_phase(dev, batch: int) -> None:
 
 def check_response(params, key, challenge: bytes, response: bytes, rng, label: str,
                    picks: int = 6) -> int:
-    """Host-oracle check of a response: the hash chain, and for the first,
-    the last and `picks` random indices per section
-    response[i] == input[i] * (tau^i * coeff)."""
+    """Host-oracle check of a Groth16 response: the hash chain, and for the
+    first, the last and `picks` random indices per section
+    response[i] == input[i] * (tau^(first + i) * coeff), `first` the
+    absolute index of a chunk's first element (0 in full mode)."""
     from snark_setup_tpu_torch.curves.host import g1_curve, g2_curve
     from snark_setup_tpu_torch.phase1.buffers import split
     from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
-    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ContributionMode, UseCompression
 
     if response[:64] != hashlib.blake2b(challenge, digest_size=64).digest():
         raise AssertionError(f"{label}: response does not start with the challenge's hash")
     spec = params.spec
     sec_in, sec_out = split(params, UseCompression.NO), split(params, UseCompression.YES)
     codecs = {"g1": (g1_codec(spec), g1_curve(spec)), "g2": (g2_codec(spec), g2_curve(spec))}
+    first = params.chunk_index * params.chunk_size if params.contribution_mode is ContributionMode.CHUNKED else 0
     checked = 0
     for name, group, coeff_name in SECTIONS:
         codec, curve = codecs[group]
         n = sec_in[name].num_elements
+        if n == 0:
+            continue  # a chunk past the powers_length sections
         idx = sorted({0, n - 1, *(int(i) for i in rng.integers(0, n, picks))})
         coeff = getattr(key, coeff_name) if coeff_name else 1
         for i in idx:
@@ -746,7 +770,7 @@ def check_response(params, key, challenge: bytes, response: bytes, rng, label: s
                                      UseCompression.NO, CheckForCorrectness.NO)
             p_out = codec.deserialize(bytes(sec_out[name].slice_of(response, i, i + 1)),
                                       UseCompression.YES, CheckForCorrectness.NO)
-            if p_out != curve.mul(p_in, pow(key.tau, i, spec.r) * coeff % spec.r):
+            if p_out != curve.mul(p_in, pow(key.tau, first + i, spec.r) * coeff % spec.r):
                 raise AssertionError(f"{label}: {name}[{i}] differs from the host oracle")
             checked += 1
     codec, curve = codecs["g2"]
@@ -936,6 +960,142 @@ def route_scalar_mul_phase(dev, batch: int) -> None:
                                      f"lane {lane} differs from the host oracle")
         emit({"phase": "route", "config": f"scalar_mul {curve}/{group}", "switch": ROUTES[route][0],
               "batch": batch, "seconds": secs, "oracle_lanes": lanes, "oracle_ok": True})
+
+
+def check_marlin_response(params, key, challenge: bytes, response: bytes, rng, label: str,
+                          picks: int = 6) -> int:
+    """Host-oracle check of a Marlin response: the hash chain;
+    tau_g1[i] == input[i] * tau^i at the first, the last and `picks` random
+    indices; every point of tau_g2 (1, tau, then the inverse degree-bound
+    powers) and of alpha_g1 (alpha * (1, tau, tau^2, then f, f tau, f tau^2
+    per degree bound f)), as the protocol defines them."""
+    from snark_setup_tpu_torch.curves.host import g1_curve, g2_curve
+    from snark_setup_tpu_torch.phase1.buffers import split
+    from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
+
+    if response[:64] != hashlib.blake2b(challenge, digest_size=64).digest():
+        raise AssertionError(f"{label}: response does not start with the challenge's hash")
+    spec, r = params.spec, params.spec.r
+    sec_in, sec_out = split(params, UseCompression.NO), split(params, UseCompression.YES)
+    codecs = {"g1": (g1_codec(spec), g1_curve(spec)), "g2": (g2_codec(spec), g2_curve(spec))}
+    tau = key.tau
+    bounds = [pow(tau, params.powers_length - 1 - (1 << i) + 2, r) for i in range(params.total_size_in_log2)]
+    alpha = [pow(tau, i, r) for i in range(3)]
+    for f in bounds:
+        alpha += [f, f * tau % r, f * tau * tau % r]
+    n1 = sec_in["tau_g1"].num_elements
+    wants = (
+        ("tau_g1", "g1", {i: pow(tau, i, r) for i in {0, n1 - 1, *(int(i) for i in rng.integers(0, n1, picks))}}),
+        ("tau_g2", "g2", dict(enumerate([1, tau % r] + [pow(b, -1, r) for b in bounds]))),
+        ("alpha_g1", "g1", {i: k * key.alpha % r for i, k in enumerate(alpha)}),
+    )
+    checked = 0
+    for name, group, exps in wants:
+        codec, curve = codecs[group]
+        if len(exps) > sec_out[name].num_elements:
+            raise AssertionError(f"{label}: {name} holds {sec_out[name].num_elements} points, not {len(exps)}")
+        for i, k in sorted(exps.items()):
+            p_in = codec.deserialize(bytes(sec_in[name].slice_of(challenge, i, i + 1)),
+                                     UseCompression.NO, CheckForCorrectness.NO)
+            p_out = codec.deserialize(bytes(sec_out[name].slice_of(response, i, i + 1)),
+                                      UseCompression.YES, CheckForCorrectness.NO)
+            if p_out != curve.mul(p_in, k):
+                raise AssertionError(f"{label}: {name}[{i}] differs from the host oracle")
+            checked += 1
+    return checked
+
+
+def modes_phase(dev, mode: str, power: int, batch: int) -> None:
+    """`new` + one contribution through the port's CLI on BLS12-377 (G1 on
+    K3 + K4, G2 on K3 + the group law over K5) in a mode the main paths do
+    not take: `beacon` (the key from the beacon hash), chunked `contribute`
+    (chunk 1, with every section, and chunk 3, tau_g1 only and ragged, of
+    2^(power - 1)-element chunks) or Marlin `contribute`. Every response is
+    checked against the host oracle and the hash chain."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.cli import phase1_main
+    from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+    from snark_setup_tpu_torch.phase1.protocol import Phase1
+    from snark_setup_tpu_torch.transcript.hashing import calculate_hash, derive_rng_from_seed
+    from snark_setup_tpu_torch.utils.enums import ContributionMode, ProvingSystem
+
+    curve = "bls12_377"
+    system = ProvingSystem.MARLIN if mode == "marlin" else ProvingSystem.GROTH16
+    chunks = (1, 3) if mode == "chunked" else (0,)
+    chunk_size = 1 << (power - 1)
+    rng = np.random.default_rng(SEED + 250)
+    seed = hashlib.sha256(f"chip_smoke {mode} seed".encode()).digest()
+    for index in chunks:
+        common = ["--curve-kind", curve, "--proving-system", system.value, "--power", str(power),
+                  "--batch-size", str(batch), "--device", dev.type]
+        if mode == "chunked":
+            common += ["--contribution-mode", "chunked", "--chunk-size", str(chunk_size),
+                       "--chunk-index", str(index)]
+            params = Phase1Parameters.new_chunk(curve, ContributionMode.CHUNKED, index, chunk_size, system,
+                                                power, batch)
+        else:
+            common += ["--contribution-mode", "full"]
+            params = Phase1Parameters.new_full(curve, system, power, batch)
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{mode}_") as tmp:
+            path = lambda name: os.path.join(tmp, name)
+            with open(path("seed"), "w") as f:
+                f.write(seed.hex())
+            cli = lambda *args: phase1_main.execute(phase1_main.build_parser().parse_args([*common, *args]))
+            cli("new", "--challenge-fname", path("challenge"), "--challenge-hash-fname", path("challenge.hash"))
+            files = ["--challenge-fname", path("challenge"), "--challenge-hash-fname", path("challenge.hash"),
+                     "--response-fname", path("response"), "--response-hash-fname", path("response.hash")]
+            t0 = time.perf_counter()
+            if mode == "beacon":
+                cli("beacon", *files, "--beacon-hash", seed.hex())
+            else:
+                cli("--seed", path("seed"), "contribute", *files)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            with open(path("challenge"), "rb") as f:
+                challenge = f.read()
+            with open(path("response"), "rb") as f:
+                response = f.read()
+            with open(path("response.hash"), "rb") as f:
+                if f.read() != calculate_hash(response):
+                    raise AssertionError(f"{curve} {mode}: response.hash is not the response's hash")
+        _, key = Phase1.key_generation(params.spec, derive_rng_from_seed(seed), calculate_hash(challenge))
+        label = f"{curve} {mode} chunk {index}"
+        check = check_marlin_response if system is ProvingSystem.MARLIN else check_response
+        checked = check(params, key, challenge, response, rng, label)
+        emit({"phase": "mode", "curve": curve, "mode": mode, "proving_system": system.value, "power": power,
+              "batch_size": batch, "chunk_index": index if mode == "chunked" else None,
+              "chunk_size": chunk_size if mode == "chunked" else None, "wall_seconds": secs,
+              "response_bytes": len(response), "oracle_points_checked": checked, "hash_chain_ok": True})
+
+
+def ladder_widths_phase(dev, rows: list) -> None:
+    """The ladder kernel K4 at every width its main path launched (from the
+    wrapper's `widths` count of that path) and at 1 lane, by its launch
+    events, beside the bound at that width: the rows gain `lanes_ms`."""
+    import numpy as np
+
+    from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for
+    from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
+
+    for ci, r in enumerate(x for x in rows if x["name"].startswith("glv_ladder[")):
+        curve, group = r["name"][len("glv_ladder["):-1].split("/")
+        ops, lad, dig = curve_ops(curve, group), r["_wrapper"], glv_digits_for(curve, group)
+        widths = sorted({1, *r["launches_by_width"]})
+        rng = np.random.default_rng(SEED + 600 + ci)
+        pts, scalars, _, _ = make_inputs(ops, max(widths), rng, dev, edge=False, projective=False)
+        digits = dig(scalars)
+        lanes = {}
+        for w in widths:
+            pw = PointVec({k: v[:, :w].contiguous() for k, v in pts.items()})
+            dw = [d[..., :w].contiguous() for d in digits]
+            b_ms, b_by = bound(*kernel_work(ops, dig, lad, w)["glv_ladder"])
+            lanes[w] = {"ms": launch_ms(lad, lambda: lad(pw, *dw), 5), "bound_ms": b_ms, "bound_by": b_by}
+        r["lanes_ms"] = lanes
+        emit({"phase": "ladder widths", "config": f"{curve}/{group}", "path": r["_path"],
+              "launches_by_width": r["launches_by_width"], "lanes_ms": lanes})
 
 
 def out_of_subgroup_g1(spec):
@@ -1371,11 +1531,20 @@ def main() -> int:
             ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
                                                 dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
             ("route scalar-muls", lambda: route_scalar_mul_phase(dev, BATCH)),
+            # the ladder's other modes on BLS12-377 (K3 + K4 on G1, K3 on G2)
+            ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH)),
+            ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH)),
+            ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH)),
         )
+        # kernels that must launch on a path besides the rows it owns
+        also = {p: ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "glv_digits[bls12_377/g2]")
+                for p in ("bls12_377 beacon", "bls12_377 chunked", "bls12_377 marlin")}
         for curve, run in paths:
             for w in wrappers:
                 w.launches = 0
                 w.plain_calls = 0
+                if hasattr(w, "widths"):
+                    w.widths.clear()
             t0 = time.perf_counter()
             run()
             for w in wrappers:
@@ -1385,10 +1554,17 @@ def main() -> int:
                 if r["_path"] == curve:
                     r["launches"] = r["_wrapper"].launches
                     r["plain_calls"] = r["_wrapper"].plain_calls
+                    if hasattr(r["_wrapper"], "widths"):
+                        r["launches_by_width"] = dict(sorted(r["_wrapper"].widths.items()))
                     if r["launches"] <= 0:
                         raise AssertionError(f"{r['name']} was never launched on the {curve} path")
+            launched = {r["_label"]: r["_wrapper"].launches for r in rows if r["_label"] in also.get(curve, ())}
+            for label, n in launched.items():
+                if n <= 0:
+                    raise AssertionError(f"{label} was never launched on the {curve} path")
             emit({"phase": "path", "curve": curve, "seconds": time.perf_counter() - t0,
-                  "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve}})
+                  "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched})
+        ladder_widths_phase(dev, rows)
         for r in rows:
             del r["_wrapper"], r["_label"]
             r.pop("_route", None)

@@ -31,9 +31,17 @@ NVCC_FLAGS = [
 # K8) are instantiated once per limb count
 # (NL 32-bit limbs = L/2: 12 for BLS12-377/381's Fq, 24 for BW6-761's and
 # the MNT curves'): separate libraries build in parallel and keep each
-# compilation unit small.
+# compilation unit small. The digits kernel is instantiated once per curve
+# with a GLV endomorphism, its shapes compile-time (ops/cuda_glv.py:
+# digits_geometry; both groups of a curve share them, and the wrapper checks
+# them against the library's).
 TARGETS = {
-    "glv_digits": ("glv_digits.cu", []),
+    "glv_digits_bls12_377": ("glv_digits.cu", ["-DDIG_LS=16", "-DDIG_LC=9", "-DDIG_LT=20", "-DDIG_LH=10",
+                                               "-DDIG_NWIN=33", "-DDIG_MU=18", "-DDIG_CO=8"]),
+    "glv_digits_bls12_381": ("glv_digits.cu", ["-DDIG_LS=16", "-DDIG_LC=10", "-DDIG_LT=21", "-DDIG_LH=10",
+                                               "-DDIG_NWIN=33", "-DDIG_MU=19", "-DDIG_CO=8"]),
+    "glv_digits_bw6": ("glv_digits.cu", ["-DDIG_LS=24", "-DDIG_LC=13", "-DDIG_LT=28", "-DDIG_LH=13",
+                                        "-DDIG_NWIN=48", "-DDIG_MU=26", "-DDIG_CO=12"]),
     "glv_ladder_nl12": ("glv_ladder.cu", ["-DNL=12"]),
     "glv_ladder_nl24": ("glv_ladder.cu", ["-DNL=24"]),
     "group_ops_nl12": ("group_ops.cu", ["-DNL=12"]),

@@ -7,12 +7,16 @@ ladder consumes: two (nwin, B) planes of MSB-first 4-bit digits (of |k1| and
 A CUDA tensor launches the kernel ``csrc/glv_digits.cu`` (or raises); a CPU
 tensor runs `glv_digits_plain`. Nothing falls back from one to the other.
 
+The kernel's shapes are compile-time, one library per curve; its constants
+reach it by value (`digits_consts`).
+
 Replaces the reference's PallasGLVDigits (ops/pallas_glv.py); the exact
 integer model of both is GLVOps.decompose_host.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -20,8 +24,37 @@ import numpy as np
 import torch
 
 WINDOW = 4
-_MAXL = 64  # limb capacity of the kernel's per-thread arrays (csrc/glv_digits.cu)
-_NCONST = 400
+
+
+def digits_geometry(ops) -> dict:
+    """The compile-time shapes of the digits kernel for one (curve, group):
+    scalar limbs LS, rounded-quotient limbs LC, working width LT, magnitude
+    limbs LH, windows NWIN, and the zero-padded limb counts of the Barrett
+    reciprocals (MU) and of the lattice coefficients (CO)."""
+    g = ops.glv
+    coeffs = [t[1] for t in (*g.k1_terms, *g.k2_terms) if t is not None]
+    return {
+        "LS": ops.fr.L, "LC": g.Lc, "LT": g.LT, "LH": g.Lh, "NWIN": -(-g.p.nbits // WINDOW),
+        "MU": max(len(m) for m in g.mu), "CO": max(len(c) for c in coeffs),
+    }
+
+
+def digits_consts(ops) -> np.ndarray:
+    """csrc/glv_digits.cu's DigitsConsts block as uint32 words: mu[2][MU]
+    (16-bit limbs), coeff[4][CO] (the terms k1: c_1, c_2; k2: c_1, c_2; an
+    absent term is zeros), to_neg[4] (1 where the term is subtracted)."""
+    g, geo = ops.glv, digits_geometry(ops)
+    mu = np.zeros((2, geo["MU"]), np.uint32)
+    for i, m in enumerate(g.mu):
+        mu[i, : len(m)] = m
+    coeff = np.zeros((4, geo["CO"]), np.uint32)
+    to_neg = np.zeros(4, np.uint32)
+    for t, term in enumerate((*g.k1_terms, *g.k2_terms)):
+        if term is not None:
+            sgn, limbs = term
+            coeff[t, : len(limbs)] = limbs
+            to_neg[t] = 1 if sgn > 0 else 0  # k = ... - sgn * c * |coeff|
+    return np.concatenate([mu.ravel(), coeff.ravel(), to_neg])
 
 
 def glv_digits_plain(ops, scalars_raw: torch.Tensor):
@@ -40,8 +73,9 @@ def glv_digits_plain(ops, scalars_raw: torch.Tensor):
 
 
 class GLVDigits:
-    """Digits wrapper for one CurveOps; keeps the kernel's constant tensor
-    per device and counts launches."""
+    """Digits wrapper for one CurveOps; keeps the kernel's constants and
+    counts launches. The kernel is the curve's library (its geometry is
+    compile-time), checked against `digits_geometry` at the first launch."""
 
     def __init__(self, ops):
         if ops.glv is None:
@@ -50,41 +84,31 @@ class GLVDigits:
         self.glv = g = ops.glv
         self.Ls = ops.fr.L
         self.nwin = -(-g.p.nbits // WINDOW)
+        self.geometry = digits_geometry(ops)
         self.launches = 0
+        self.widths: collections.Counter = collections.Counter()  # launches by lane count
         self.plain_calls = 0
         # when set to a list, every launch appends its (start, end) CUDA
         # timing events: lets a caller sum the time spent inside the kernel
         self.events: list | None = None
-        self._consts_np = self._pack_consts()
-        self._consts_dev: dict = {}
+        self._consts_host = digits_consts(ops)  # by value into the kernel's parameter
         self._fn = None
-
-    def _pack_consts(self) -> np.ndarray:
-        """The kernel's constant block (layout documented in the source)."""
-        g = self.glv
-        limbs = [*g.mu, *(t[1] if t else np.zeros(0, np.uint32) for t in (*g.k1_terms, *g.k2_terms))]
-        widest = max(
-            self.Ls + max(len(m) for m in g.mu), g.S_limbs + g.Lc, g.LT, *(len(a) for a in limbs)
-        )
-        if widest > _MAXL or g.Lh > g.LT or 4 * g.Lh < self.nwin:
-            raise ValueError("GLV geometry exceeds the digits kernel's limb capacity")
-        c = np.zeros(_NCONST, np.int64)
-        c[:8] = [self.Ls, g.S_limbs, g.Lc, g.LT, g.Lh, self.nwin, len(g.mu[0]), len(g.mu[1])]
-        for t, term in enumerate((*g.k1_terms, *g.k2_terms)):
-            if term is not None:
-                sgn, coeff = term
-                c[8 + 2 * t] = 1 if sgn > 0 else 2
-                c[9 + 2 * t] = len(coeff)
-        for i, arr in enumerate(limbs):
-            c[16 + 64 * i : 16 + 64 * i + len(arr)] = arr
-        return c.astype(np.int32)
 
     def _launch_fn(self):
         if self._fn is None:
-            from .build import load
+            from .build import TARGETS, load
 
-            fn = load("glv_digits").glv_digits_launch
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+            target = f"glv_digits_{self.ops.spec.name}"  # one library per curve
+            if target not in TARGETS:
+                raise NotImplementedError(f"no digits kernel is instantiated for {self.ops.spec.name}")
+            lib = load(target)
+            cfg = (ctypes.c_longlong * 7)()
+            lib.glv_digits_config(cfg)
+            built = dict(zip(("LS", "LC", "LT", "LH", "NWIN", "MU", "CO"), cfg))
+            if built != self.geometry:
+                raise RuntimeError(f"{target} was built for {built}, the curve needs {self.geometry}")
+            fn = lib.glv_digits_launch
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
@@ -106,9 +130,6 @@ class GLVDigits:
     def _launch(self, k: torch.Tensor):
         dev = k.device
         B = k.shape[1]
-        consts = self._consts_dev.get(dev)
-        if consts is None:
-            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
         d1 = torch.empty((self.nwin, B), dtype=torch.int32, device=dev)
         d2 = torch.empty((self.nwin, B), dtype=torch.int32, device=dev)
         neg = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -122,12 +143,13 @@ class GLVDigits:
                 start = torch.cuda.Event(enable_timing=True)
                 start.record(stream)
             err = fn(
-                k.data_ptr(), consts.data_ptr(), d1.data_ptr(), d2.data_ptr(),
-                neg.data_ptr(), flip.data_ptr(), B, stream.cuda_stream,
+                k.data_ptr(), d1.data_ptr(), d2.data_ptr(), neg.data_ptr(), flip.data_ptr(), B,
+                self._consts_host.ctypes.data, stream.cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"glv_digits kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.widths[B] += 1
         if self.events is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record(stream)

@@ -10,20 +10,38 @@ table, beta-multiplied endomorphism table, then per window four doublings
 and two complete additions — and every field operation is canonical, so
 their outputs are equal limb for limb, X, Y and Z alike.
 
+The kernel runs one team of threads of a warp per lane on the cooperative
+layer (``csrc/field_team.cuh``, the group law of ``csrc/group_team.cuh``
+that the group-op kernel K2 shares), each thread keeping its slice of the
+16-entry tables in local memory; its modulus constants and beta reach it by
+value (`ladder_consts`).
+
 Replaces the reference's FusedGLVLadder (ops/pallas_ladder.py).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
 import numpy as np
 import torch
 
+from .cuda_group import team_consts
 from .curve import PointVec, plain_group_law
 
 WINDOW = 4
+
+
+def ladder_consts(fq, beta: int) -> np.ndarray:
+    """The constants block the kernel's parameter is packed from, as uint32
+    words: beta (Montgomery form, NL words), then csrc/field_team.cuh's
+    TeamConsts (N, R mod N, n0). `beta` is in standard form."""
+    NL = fq.L // 2
+    beta_mont = beta * fq.spec.mont_r % fq.modulus
+    words = [(beta_mont >> (32 * i)) & 0xFFFFFFFF for i in range(NL)]
+    return np.concatenate([np.array(words, np.uint32), team_consts(fq)])
 
 
 def glv_ladder_plain(ops, pts: PointVec, d1, d2, neg1, flip) -> PointVec:
@@ -49,8 +67,9 @@ def glv_ladder_plain(ops, pts: PointVec, d1, d2, neg1, flip) -> PointVec:
 
 
 class FusedGLVLadder:
-    """Ladder wrapper for one CurveOps; keeps the kernel's field constants
-    per device and counts launches."""
+    """Ladder wrapper for one CurveOps; keeps the kernel's constants and
+    counts launches. `team` (threads a lane) is read from the library at
+    its first launch."""
 
     def __init__(self, ops):
         if ops.glv is None or ops._b3_small is None:
@@ -62,23 +81,16 @@ class FusedGLVLadder:
         fq = ops.fq
         self.L = fq.L
         self.NL = fq.L // 2
-        q = fq.modulus
-        # the shared-reduction product (fmul2) and the plain additions need 2N < R
-        if 2 * q >= fq.spec.mont_r_pow:
+        # the team layer's products and additions need 2N < R
+        if 2 * fq.modulus >= fq.spec.mont_r_pow:
             raise ValueError("modulus too close to R for the ladder kernel")
         self.b3w, b3neg = ops._b3_small
         self.b3neg = int(b3neg)
-        beta_mont = ops.glv.p.beta * fq.spec.mont_r % q
-
-        def words(v: int) -> list[int]:
-            return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)]
-
-        n0 = (-pow(q, -1, 1 << 32)) % (1 << 32)
-        consts = words(q) + words(fq.spec.mont_r % q) + words(beta_mont) + [n0]
-        self._consts_np = np.array(consts, np.uint32).view(np.int32)
-        self._consts_dev: dict = {}
+        self._consts_host = ladder_consts(fq, ops.glv.p.beta)  # by value into the kernel's parameter
         self._fn = None
+        self.team: int | None = None
         self.launches = 0
+        self.widths: collections.Counter = collections.Counter()  # launches by lane count
         self.plain_calls = 0
         # when set to a list, every launch appends its (start, end) CUDA
         # timing events: lets a caller sum the time spent inside the kernel
@@ -94,6 +106,7 @@ class FusedGLVLadder:
             lib = load(target)
             if lib.glv_ladder_nl() != self.NL:
                 raise RuntimeError(f"{target} was built for another limb count")
+            self.team = lib.glv_ladder_team()
             fn = lib.glv_ladder_launch
             fn.argtypes = (
                 [ctypes.c_void_p] * 10
@@ -127,9 +140,6 @@ class FusedGLVLadder:
 
     def _launch(self, tensors, B: int, nwin: int) -> PointVec:
         dev = tensors[0].device
-        consts = self._consts_dev.get(dev)
-        if consts is None:
-            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
         out = [torch.empty((self.L, B), dtype=torch.int32, device=dev) for _ in range(3)]
         if B == 0:
             return PointVec(x=out[0], y=out[1], z=out[2])
@@ -141,12 +151,13 @@ class FusedGLVLadder:
                 start.record(stream)
             err = fn(
                 *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in out),
-                B, nwin, self.b3w, self.b3neg, consts.data_ptr(),
+                B, nwin, self.b3w, self.b3neg, self._consts_host.ctypes.data,
                 stream.cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"glv_ladder kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.widths[B] += 1
         if self.events is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record(stream)

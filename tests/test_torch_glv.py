@@ -80,22 +80,26 @@ def test_decompose_equals_reference_decompose(curve, group):
 
 @pytest.mark.parametrize("curve,group", GROUPS)
 def test_kernel_constant_block_layout(curve, group):
-    """The constant block handed to the CUDA kernel: header and limb rows
-    at the offsets the kernel source documents."""
+    """The constant block handed to the CUDA kernel by value: the limb rows
+    and term signs at the offsets of the kernel's DigitsConsts, zero-padded
+    to the curve's compile-time geometry."""
     tops = torch_curve_ops(curve, group)
     w = GLVDigits(tops)
-    c, g = w._consts_np, tops.glv
-    assert c.dtype == np.int32 and c.shape == (400,)
-    assert c[:8].tolist() == [w.Ls, g.S_limbs, g.Lc, g.LT, g.Lh, w.nwin, len(g.mu[0]), len(g.mu[1])]
+    c, g, geo = w._consts_host, tops.glv, w.geometry
+    MU, CO = geo["MU"], geo["CO"]
+    assert c.dtype == np.uint32 and c.shape == (2 * MU + 4 * CO + 4,)
+    assert (geo["LS"], geo["LC"], geo["LT"], geo["LH"], geo["NWIN"]) == (w.Ls, g.Lc, g.LT, g.Lh, w.nwin)
+    assert g.S_limbs == w.Ls + g.Lc  # the kernel's Barrett shift
     for m, mu in enumerate(g.mu):
-        assert (c[16 + 64 * m : 16 + 64 * m + len(mu)] == mu).all()
+        row = c[MU * m : MU * (m + 1)]
+        assert (row[: len(mu)] == mu).all() and not row[len(mu):].any()
     for t, term in enumerate((*g.k1_terms, *g.k2_terms)):
-        side, n = c[8 + 2 * t], c[9 + 2 * t]
+        row, to_neg = c[2 * MU + CO * t : 2 * MU + CO * (t + 1)], c[2 * MU + 4 * CO + t]
         if term is None:
-            assert (side, n) == (0, 0)
+            assert not row.any() and to_neg == 0
         else:
-            assert side == (1 if term[0] > 0 else 2) and n == len(term[1])
-            assert (c[144 + 64 * t : 144 + 64 * t + n] == term[1]).all()
+            assert to_neg == (1 if term[0] > 0 else 0)
+            assert (row[: len(term[1])] == term[1]).all() and not row[len(term[1]):].any()
 
 
 def test_wrapper_rejects_wrong_operands():

@@ -1,5 +1,5 @@
-"""The Python side of the group-op kernel K2 on the cooperative layer
-(ops/cuda_group.py), on the CPU: what the wrapper hands a launch.
+"""The Python side of the team-layer kernels, on the CPU: what the wrappers
+hand a launch. The group-op kernel K2 (ops/cuda_group.py):
 
 - `team_consts`: the by-value TeamConsts block of csrc/field_team.cuh, byte
   for byte against the Python integers N, R mod N and n0.
@@ -9,6 +9,16 @@
   checks for every operand those calls pass that the kernel's address
   arithmetic lands on the view's own elements, and which layouts are
   still copied (none of theirs).
+
+The ladder K4 (ops/cuda_ladder.py) and the digits kernel K3
+(ops/cuda_glv.py), whose constants reach the kernel by value:
+
+- `ladder_consts`: beta (Montgomery form) then TeamConsts, word for word
+  against the Python integers.
+- `digits_consts`: the DigitsConsts block, read back by a Python model of
+  the kernel's arithmetic at the library's compile-time geometry (zero
+  padding and all), which must give `glv_digits_plain`'s digits and signs;
+  and the build targets' geometry against every GLV curve's.
 
 No JAX compiles; `torch.set_num_threads(1)` as in the other port tests.
 """
@@ -21,7 +31,10 @@ import torch
 
 from snark_setup_tpu_torch.curves.constants import get_curve
 from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
+from snark_setup_tpu_torch.ops.build import TARGETS
+from snark_setup_tpu_torch.ops.cuda_glv import GLVDigits, digits_consts, digits_geometry, glv_digits_plain
 from snark_setup_tpu_torch.ops.cuda_group import GroupOps, group_ops_for, lane_layout, team_consts
+from snark_setup_tpu_torch.ops.cuda_ladder import FusedGLVLadder, ladder_consts
 from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
 from snark_setup_tpu_torch.ops.fp import fp_ops
 from snark_setup_tpu_torch.ops.pippenger import PippengerMSM
@@ -162,3 +175,79 @@ def test_operand_copies_only_unmergeable_three_level_views():
     t, desc = k2.operand(c[:, 1:3], c[:, 1:3].shape[1:])  # mergeable: in place
     assert t.untyped_storage().data_ptr() == c.untyped_storage().data_ptr()
     assert desc == [c[:, 1:3].data_ptr(), 4 * 6 * 8, 2 * 6 * 8, 0, 1]
+
+
+LADDER_GROUPS = [("bls12_377", "g1"), ("bls12_381", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+GLV_GROUPS = LADDER_GROUPS + [("bls12_377", "g2"), ("bls12_381", "g2")]
+
+
+@pytest.mark.parametrize("curve,group", LADDER_GROUPS)
+def test_ladder_consts_words_equal_the_python_integers(curve, group):
+    ops = curve_ops(curve, group)
+    q, NL = ops.spec.q, ops.fq.L // 2
+    words = FusedGLVLadder(ops)._consts_host
+    assert words.dtype == np.uint32 and words.shape == (NL + 2 * NL + 1,)  # beta[NL] + TeamConsts
+    raw = words.tobytes()
+    beta = int.from_bytes(raw[: 4 * NL], "little")
+    assert beta == ops.glv.p.beta * (1 << (32 * NL)) % q and pow(ops.glv.p.beta, 3, q) == 1
+    assert raw[4 * NL:] == team_consts(ops.fq).tobytes()
+
+
+def _digits_model(words: np.ndarray, geo: dict, k: int) -> tuple[list[int], list[int], int, int]:
+    """csrc/glv_digits.cu's arithmetic on one scalar, in Python integers, from
+    the packed DigitsConsts words: (d1, d2, neg, flip)."""
+    MU, CO, LS, LC, LT, LH, NW = (geo[x] for x in ("MU", "CO", "LS", "LC", "LT", "LH", "NWIN"))
+    mu = words[: 2 * MU].reshape(2, MU).astype(object)
+    coeff = words[2 * MU : 2 * MU + 4 * CO].reshape(4, CO).astype(object)
+    to_neg = words[2 * MU + 4 * CO:]
+    assert len(to_neg) == 4
+    kk = [(k >> (16 * i)) & 0xFFFF for i in range(LS)]
+    S = LS + LC
+    cs = []
+    for m in range(2):
+        acc, c = 0, []
+        for col in range(S + LC):
+            acc += sum(kk[i] * mu[m][col - i] for i in range(LS) if 0 <= col - i < MU)
+            if col == S - 1:
+                acc += 0x8000
+            if col >= S:
+                c.append(acc & 0xFFFF)
+            acc >>= 16
+        cs.append(c)
+    mags, negs = [], []
+    for o in range(2):
+        P = (k if o == 0 else 0) + sum(
+            sum(cs[s][i] * coeff[2 * o + s][j] << (16 * (i + j)) for i in range(LC) for j in range(CO))
+            for s in range(2) if not to_neg[2 * o + s])
+        N = sum(sum(cs[s][i] * coeff[2 * o + s][j] << (16 * (i + j)) for i in range(LC) for j in range(CO))
+                for s in range(2) if to_neg[2 * o + s])
+        P, N = P % (1 << (16 * LT)), N % (1 << (16 * LT))
+        negs.append(int(P < N))
+        mag = abs(P - N) % (1 << (16 * LH))
+        mags.append([(mag >> (4 * (NW - 1 - r))) & 15 for r in range(NW)])
+    return mags[0], mags[1], negs[0], negs[0] ^ negs[1]
+
+
+@pytest.mark.parametrize("curve,group", GLV_GROUPS)
+def test_digits_consts_give_the_plain_versions_digits(curve, group):
+    ops = curve_ops(curve, group)
+    w = GLVDigits(ops)
+    words, geo = digits_consts(ops), w.geometry
+    assert words.dtype == np.uint32 and words.shape == (2 * geo["MU"] + 4 * geo["CO"] + 4,)
+    r = ops.spec.r
+    rng = np.random.default_rng(23)
+    ks = [0, 1, r - 1, 5 << 40] + [int.from_bytes(rng.bytes(64), "little") % r for _ in range(12)]
+    d1, d2, neg, flip = glv_digits_plain(ops, torch.from_numpy(
+        np.ascontiguousarray(ints_to_limbs_batch(ks, ops.fr.L).T.astype(np.int32))))
+    for lane, k in enumerate(ks):
+        m1, m2, n, f = _digits_model(words, geo, k)
+        assert m1 == d1[:, lane].tolist() and m2 == d2[:, lane].tolist(), lane
+        assert (n, f) == (int(neg[lane]), int(flip[lane])), lane
+
+
+@pytest.mark.parametrize("curve", ["bls12_377", "bls12_381", "bw6_761"])
+def test_digits_build_targets_carry_the_curves_geometry(curve):
+    defines = dict(d[2:].split("=") for d in TARGETS[f"glv_digits_{curve_ops(curve, 'g1').spec.name}"][1])
+    for group in ("g1", "g2"):
+        assert {k: int(v) for k, v in defines.items()} == {
+            f"DIG_{k}": v for k, v in digits_geometry(curve_ops(curve, group)).items()}

@@ -332,3 +332,88 @@ def test_stacked_mul_kernel_at_the_main_path_shapes_on_the_card(curve, group, we
                           for lo in range(0, B, 256)], dim=-1)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _glv_edge_scalars(ops):
+    """0, 1, r - 1, a scalar with one non-zero window (k1 = k, k2 = 0), and
+    one scalar for each (neg, flip) pair of the decomposition."""
+    r = ops.spec.r
+    ks = [0, 1, r - 1, 5 << 40]
+    rng = np.random.default_rng(29)
+    combos = {}
+    while len(combos) < 4:
+        k = int.from_bytes(rng.bytes(64), "little") % r
+        k1, k2 = ops.glv.decompose_host(k)
+        combos.setdefault((k1 < 0, (k1 < 0) != (k2 < 0)), k)
+    return ks + [combos[c] for c in sorted(combos)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 2, "T-1", "T+1", 33, 4097, 16384])
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_glv_kernels_at_widths_and_edge_scalars_on_the_card(curve, group, width):
+    """K3 and K4 against their plain versions, limb for limb, at narrow
+    widths around the ladder's team size T, a warp + 1, a ragged and the
+    main path's batch; the lanes cycle through the edge scalars (0, 1,
+    r - 1, one non-zero window, every neg / flip pair) and random ones, on
+    projective points with the point at infinity in lane 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    dig, lad = glv_digits_for(curve, group), fused_ladder_for(curve, group)
+    rng = np.random.default_rng(31)
+    with torch.no_grad():
+        warm = _points_on_card(ops, 1, rng, dev)
+        lad(warm, *dig(ops.fr.tensor(ints_to_limbs_batch([1], ops.fr.L).T, dev)))  # loads the library: lad.team
+        T = lad.team
+        B = {"T-1": T - 1, "T+1": T + 1}.get(width, width)
+        edge = _glv_edge_scalars(ops)
+        r = ops.spec.r
+        ks = [edge[i % len(edge)] if i < 2 * len(edge) else int.from_bytes(rng.bytes(64), "little") % r
+              for i in range(B)]
+        scalars = ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev)
+        pts = _points_on_card(ops, B, rng, dev)
+        n_dig, n_lad = dig.launches, lad.launches
+        got_d = dig(scalars)
+        got_p = lad(pts, *got_d)
+        torch.cuda.synchronize()
+        assert (dig.launches, lad.launches) == (n_dig + 1, n_lad + 1)
+        want_d = glv_digits_plain(ops, scalars)
+        for a, b in zip(got_d, want_d):
+            assert torch.equal(a, b)
+        want_p = glv_ladder_plain(ops, pts, *want_d)
+        for k in "xyz":
+            assert torch.equal(got_p[k], want_p[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_glv_kernels_on_non_contiguous_operands_on_the_card(curve, group):
+    """Strided scalars, point coordinates and digit planes (every other lane
+    of a wider batch) give what their contiguous copies give."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    dig, lad = glv_digits_for(curve, group), fused_ladder_for(curve, group)
+    rng = np.random.default_rng(37)
+    B = 65
+    with torch.no_grad():
+        ks = [int.from_bytes(rng.bytes(64), "little") % ops.spec.r for _ in range(2 * B)]
+        wide = ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev)
+        scalars = wide[:, ::2]
+        assert not scalars.is_contiguous()
+        got_d = dig(scalars)
+        want_d = glv_digits_plain(ops, scalars.contiguous())
+        for a, b in zip(got_d, want_d):
+            assert torch.equal(a, b)
+        pts2 = _points_on_card(ops, 2 * B, rng, dev)
+        pts = PointVec({k: v[:, 1::2] for k, v in pts2.items()})
+        d2 = [torch.stack([d, d], dim=-1).reshape(*d.shape[:-1], 2 * B)[..., ::2] for d in got_d]
+        assert not pts["x"].is_contiguous() and not d2[0].is_contiguous()
+        got_p = lad(pts, *d2)
+        want_p = glv_ladder_plain(ops, PointVec({k: v.contiguous() for k, v in pts.items()}), *want_d)
+        for k in "xyz":
+            assert torch.equal(got_p[k], want_p[k]), k
+    torch.cuda.synchronize()
