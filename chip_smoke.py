@@ -21,7 +21,8 @@ under SNARK_SETUP_MXU_STACKED (K6 + the matrix-product reduction), the
 MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
 elsewhere), each response byte-identical to the default route's from the
 same challenge and seed, and the batch scalar-mul under the routes at the
-other limb count (host-oracle spot checks). Each path runs with every kernel's launch count set to 0
+other limb count (host-oracle spot checks; the seconds inside each kernel
+summed from its launch events, as on the contribute and route paths). Each path runs with every kernel's launch count set to 0
 just before it and read just after; every kernel must have launched on its
 path, and no plain version may have run there.
 
@@ -90,6 +91,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
 INT8_MAC_PER_S = 989.5e12  # the data sheet's 1979 dense int8 TOP/s on the tensor cores
+FMA_PER_S = 33.5e12  # the data sheet's 67 TFLOP/s fp32: K8's own floor (its f32 FMAs)
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
@@ -443,15 +445,15 @@ def route_work(route: str, fq, weights, SU: int, SV: int, B: int) -> tuple[int, 
     function one launch of a route's kernel computes, counted as
     `stacked_work` counts K5, not by the route's own algorithm. K7 and K8
     return K5's product: K5's bytes and multiply-adds, plus their Toeplitz
-    reduction's (2L x 4L) + (4L x 2L) = 16 L^2 byte multiply-adds per lane
-    and output group on the tensor cores. K6 returns the unreduced columns:
+    reduction's (2L x 2L) + (4L x 2L) = 12 L^2 byte multiply-adds per lane
+    and output group on the tensor cores (csrc/toeplitz_tc.cuh). K6 returns the unreduced columns:
     K5's operand reads and products without the reduction, and 2L columns
     per output group at 4 bytes each (every column is below 2^32)."""
     L, NL, G = fq.L, fq.L // 2, len(weights)
     nbytes, nops = stacked_work(fq, weights, SU, SV, B)
     if route == "k6":
         return 4 * L * B * (SU + SV) + 4 * 2 * L * G * B, nops - B * G * NL * NL, 0
-    return nbytes, nops, B * G * 16 * L * L
+    return nbytes, nops, B * G * 12 * L * L
 
 
 def compare_routes(dev, batch: int) -> list[dict]:
@@ -506,10 +508,14 @@ def compare_routes(dev, batch: int) -> list[dict]:
             else:
                 path = "mnt4_753 v2" if route == "k8" and fq.L == 48 else "route scalar-muls"
             name = f"{kname}[{curve} {label}]"
+            own = {}
+            if route == "k8":  # 4 L^2 f32 FMAs per lane and non-zero weight
+                nz = sum(1 for g in comp for w in g if w)
+                own["fma_floor_ms"] = 4 * fq.L * fq.L * nz * batch / FMA_PER_S * 1e3
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None, "batch": batch, "k5_ms": k5_ms,
+                "library_ms": None, "batch": batch, "k5_ms": k5_ms, **own,
                 "shape": {"S": len(comp[0]), "G": len(comp), "SU": SU,
                           "max_weight_sum": max(sum(g) for g in comp)},
                 "_wrapper": K, "_path": path, "_label": f"{kname}[{curve}]", "_route": True,
@@ -929,37 +935,55 @@ def route_phase(dev, curve: str, power: int, batch: int, switch: str, default_di
           "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3})
 
 
-def route_scalar_mul_phase(dev, batch: int) -> None:
+ROUTE_SCALAR_MULS = (  # (curve, group, route): the routes at the other limb count
+    ("bls12_377", "g2", "k8"), ("mnt4_753", "g1", "k7"), ("mnt4_753", "g1", "k6"),
+    ("mnt6_753", "g2", "k7"), ("mnt6_753", "g2", "k6"),
+)
+
+
+def route_scalar_mul_phase(dev, batch: int, wrappers: dict) -> list[dict]:
     """The batch scalar-mul entry point under a route switch where the
     routes meet the other limb count: BLS12-377 G2 under KERNEL_V2 (K8 at
     NL 12: the endomorphism's beta planes), MNT4-753 G1 and MNT6-753 G2
     under KERNEL_V3 (K7 at NL 24) and MXU_STACKED (K6 at NL 24); host-oracle
-    spot checks on four lanes each."""
+    spot checks on four lanes each. `wrappers` maps a label to each kernel
+    wrapper whose time inside each call is summed from its launch events
+    (the labels with none are left out). Returns the phase's records."""
     import numpy as np
     import torch
 
     from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
     from snark_setup_tpu_torch.shard import runtime
 
-    for ci, (curve, group, route) in enumerate((("bls12_377", "g2", "k8"), ("mnt4_753", "g1", "k7"),
-                                                ("mnt4_753", "g1", "k6"), ("mnt6_753", "g2", "k7"),
-                                                ("mnt6_753", "g2", "k6"))):
+    records = []
+    for ci, (curve, group, route) in enumerate(ROUTE_SCALAR_MULS):
         ops = curve_ops(curve, group)
         rng = np.random.default_rng(SEED + 900 + ci)
         pts, scalars, ks, affine = make_inputs(ops, batch, rng, dev, edge=False, projective=False)
-        with switched(ROUTES[route][0]):
-            t0 = time.perf_counter()
-            out = runtime.scalar_mul(ops, pts, scalars, dev)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
+        for w in wrappers.values():
+            w.events = []
+        try:
+            with switched(ROUTES[route][0]):
+                t0 = time.perf_counter()
+                out = runtime.scalar_mul(ops, pts, scalars, dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items() if w.events}
+        finally:
+            for w in wrappers.values():
+                w.events = None
         lanes = [0, batch // 3, batch // 2, batch - 1]
         got = ops.to_affine_host(PointVec({k: v[..., lanes].contiguous() for k, v in out.items()}))
         for lane, pt in zip(lanes, got):
             if pt != ops.host_curve.mul(affine[lane], ks[lane]):
                 raise AssertionError(f"scalar_mul {curve} {group} under {ROUTES[route][0]}: "
                                      f"lane {lane} differs from the host oracle")
-        emit({"phase": "route", "config": f"scalar_mul {curve}/{group}", "switch": ROUTES[route][0],
-              "batch": batch, "seconds": secs, "oracle_lanes": lanes, "oracle_ok": True})
+        record = {"phase": "route", "config": f"scalar_mul {curve}/{group}", "switch": ROUTES[route][0],
+                  "batch": batch, "seconds": secs, "oracle_lanes": lanes, "oracle_ok": True,
+                  "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3}
+        emit(record)
+        records.append(record)
+    return records
 
 
 def check_marlin_response(params, key, challenge: bytes, response: bytes, rng, label: str,
@@ -1530,7 +1554,8 @@ def main() -> int:
                                                   dirs["bls12_377 p16"], on_path("bls12_377 mxu"))),
             ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
                                                 dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
-            ("route scalar-muls", lambda: route_scalar_mul_phase(dev, BATCH)),
+            ("route scalar-muls", lambda: route_scalar_mul_phase(
+                dev, BATCH, {r["_label"]: r["_wrapper"] for r in rows})),
             # the ladder's other modes on BLS12-377 (K3 + K4 on G1, K3 on G2)
             ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH)),
             ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH)),

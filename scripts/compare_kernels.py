@@ -2,7 +2,7 @@
 """Time the hand-written kernels of two trees of the PyTorch/CUDA port on
 one card, in turns.
 
-    python3 scripts/compare_kernels.py --first-form DIR [--kernels k2,k3,k4,k5]
+    python3 scripts/compare_kernels.py --first-form DIR [--kernels k2,k3,k4,k5,k6,k7,k8] [--route-muls]
 
 DIR holds another checkout of the repository (for example `git archive` of
 the commit before a kernel's redesign, unpacked under `build/`). The script
@@ -20,7 +20,16 @@ and times, through the wrappers a caller uses:
   4096, 16384 and 65536 lanes (4 and 7 are the narrow tails a BW6-761
   contribution launches), each process also reporting a checksum of the
   ladder's output at 4097 lanes, which must agree across the turns;
-- k5: the stacked product at chip_smoke.py's STACKED shapes, 16384 lanes.
+- k5 / k6 / k7 / k8: the stacked product (K5) and its opt-in routes' kernels
+  (`stacked_product_for(...).k6 / .k7 / .k8`) at chip_smoke.py's
+  ROUTE_SHAPES (K5 at all of them, the yardstick) at 1, 17, 4096, 16384
+  and 65536 lanes, each process also reporting a checksum of every
+  shape's output at 4097 lanes, which must agree across the turns.
+
+`--route-muls` also runs chip_smoke.py's route scalar-mul phase in each
+turn (the batch scalar-mul under a route switch on BLS12-377 G2, MNT4-753
+G1 and MNT6-753 G2, host-oracle spot checks) and reports the seconds
+inside each stacked-product kernel there, from its launch events.
 
 Every time is the mean over the calls of the wrapper's per-launch CUDA
 events (kernel time, host time between launches not counted), except the
@@ -57,8 +66,10 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPEATS = 50
 LADDER_REPEATS = 5
 GLV_WIDTHS = (1, 4, 7, 17, 4096, 16384, 65536)
-KERNELS = ("k2", "k3", "k4", "k5")
-LIBS = {"k2": ("group_ops",), "k3": ("glv_digits",), "k4": ("glv_ladder",), "k5": ("stacked_mul_nl",)}
+ROUTE_WIDTHS = (1, 17, 4096, 16384, 65536)
+KERNELS = ("k2", "k3", "k4", "k5", "k6", "k7", "k8")
+LIBS = {"k2": ("group_ops",), "k3": ("glv_digits",), "k4": ("glv_ladder",), "k5": ("stacked_mul_nl",),
+        "k6": ("stacked_cols",), "k7": ("stacked_mul_v3",), "k8": ("stacked_mul_v2",)}
 
 
 def smoke():
@@ -83,7 +94,26 @@ def sass_digest(lib: str) -> dict | None:
     return {"instructions": len(lines), "sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]}
 
 
-def time_tree(defines=(), kernels=KERNELS) -> dict:
+def stacked_shapes(cs, kernel: str) -> list:
+    """(curve, group, label, weights) of chip_smoke.py's ROUTE_SHAPES that
+    `kernel` is timed at: its own, or for K5 all of them (once each)."""
+    if kernel != "k5":
+        return list(cs.ROUTE_SHAPES[kernel])
+    seen = {}
+    for shapes in cs.ROUTE_SHAPES.values():
+        for shape in shapes:
+            seen.setdefault(shape[:3], shape)
+    return list(seen.values())
+
+
+def flattened(F, weights):
+    """(composite weights, row maps) of a tower-level shape, as chip_smoke.py
+    hands them to the wrappers."""
+    S = len(weights[0])
+    return (weights, (tuple(range(S)), tuple(range(S)), (0,) * S)) if F.degree == 1 else F._flattened(weights, S)
+
+
+def time_tree(defines=(), kernels=KERNELS, route_muls=False) -> dict:
     """The timings of the package first on sys.path (a child process);
     `defines`: PREFIX:NAME=VALUE items added to those libraries' flags."""
     import numpy as np
@@ -149,20 +179,35 @@ def time_tree(defines=(), kernels=KERNELS) -> dict:
                             .sum()) for k in "xyz"]
                 if "k3" in kernels:
                     out["checksum"][f"k3 {curve}/{group}"] = [int(d.long().sum()) for d in digits]
-        if "k5" in kernels:
-            from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
+        stacked = [k for k in ("k5", "k6", "k7", "k8") if k in kernels]
+        if stacked:
+            from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
 
-            for ci, (curve, group, label, weights) in enumerate(cs.STACKED):
-                F = curve_ops(curve, group).field
-                fq = F.fp
-                K = stacked_mul_for(fq.modulus)
-                S = len(weights[0])
-                comp, maps = (weights, (tuple(range(S)), tuple(range(S)), (0,) * S)) if F.degree == 1 \
-                    else F._flattened(weights, S)
-                rng = np.random.default_rng(cs.SEED + 900 + ci)
-                U = cs.stacked_inputs(fq, F.degree * S, cs.BATCH, rng, dev)
-                V = cs.stacked_inputs(fq, F.degree * S, cs.BATCH, rng, dev)
-                ms[f"k5 {curve} {label}"] = cs.launch_ms(K, lambda: K(U, V, comp, maps), REPEATS)
+            for kern in stacked:
+                for ci, (curve, group, label, weights) in enumerate(stacked_shapes(cs, kern)):
+                    F = curve_ops(curve, group).field
+                    fq = F.fp
+                    P = stacked_product_for(fq.modulus)
+                    K = getattr(P, kern)
+                    comp, maps = flattened(F, weights)
+                    SU = F.degree * len(weights[0])
+                    rng = np.random.default_rng(cs.SEED + 900 + ci)
+                    U = cs.stacked_inputs(fq, SU, max(ROUTE_WIDTHS), rng, dev)
+                    V = cs.stacked_inputs(fq, SU, max(ROUTE_WIDTHS), rng, dev)
+                    for w in ROUTE_WIDTHS:
+                        Uw, Vw = U[..., :w].contiguous(), V[..., :w].contiguous()
+                        ms[f"{kern} {curve} {label} {w}"] = cs.launch_ms(K, lambda: K(Uw, Vw, comp, maps), REPEATS)
+                    got = K(U[..., :cs.RAGGED].contiguous(), V[..., :cs.RAGGED].contiguous(), comp, maps)
+                    out["checksum"][f"{kern} {curve} {label}"] = int(
+                        (got.long() * torch.arange(1, got.numel() + 1, device=dev).view_as(got)).sum())
+        if route_muls:
+            from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+            wrappers = {}
+            for curve in ("bls12_377", "mnt4_753", "mnt6_753"):
+                P = stacked_product_for(curve_ops(curve, "g1").field.fp.modulus)
+                wrappers.update({f"{k} {curve}": getattr(P, k) for k in ("k5", "k6", "k7", "k8")})
+            out["route_muls"] = cs.route_scalar_mul_phase(dev, cs.BATCH, wrappers)
     mine = [t for t in build.build_logs if any(t.startswith(p) for k in kernels for p in LIBS[k])]
     out["ptxas"] = {t: [ln.strip() for ln in build.build_logs[t].splitlines()
                         if "registers" in ln or "spill" in ln or "smem" in ln] for t in mine}
@@ -194,19 +239,24 @@ def bounds(kernels) -> dict:
             work = cs.kernel_work(ops, dig, lad, w)
             out[f"k3 {curve}/{group} {w}"] = cs.bound(*work["glv_digits"])
             out[f"k4 {curve}/{group} {w}"] = cs.bound(*work["glv_ladder"])
-    for curve, group, label, weights in cs.STACKED:
-        F = curve_ops(curve, group).field
-        S = len(weights[0])
-        comp = weights if F.degree == 1 else F._flattened(weights, S)[0]
-        SU = F.degree * S
-        out[f"k5 {curve} {label}"] = cs.bound(*cs.stacked_work(F.fp, comp, SU, SU, cs.BATCH))
+    for kern in ("k5", "k6", "k7", "k8"):
+        for curve, group, label, weights in stacked_shapes(cs, kern):
+            F = curve_ops(curve, group).field
+            comp, _ = flattened(F, weights)
+            SU = F.degree * len(weights[0])
+            for w in ROUTE_WIDTHS:
+                work = cs.stacked_work(F.fp, comp, SU, SU, w) if kern == "k5" else \
+                    cs.route_work(kern, F.fp, comp, SU, SU, w)
+                out[f"{kern} {curve} {label} {w}"] = cs.bound(*work)
     return {k: v for k, v in out.items() if k.split()[0] in kernels}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--first-form", help="root of the other checkout (its package is timed first and last)")
-    ap.add_argument("--kernels", default=",".join(KERNELS), help="comma-separated subset of k2,k3,k4,k5")
+    ap.add_argument("--kernels", default=",".join(KERNELS), help=f"comma-separated subset of {','.join(KERNELS)}")
+    ap.add_argument("--route-muls", action="store_true",
+                    help="also sum each stacked-product kernel's seconds in the route scalar-mul phase")
     ap.add_argument("--variants", nargs="*", default=[],
                     help="variants of this tree to time, each PREFIX:NAME=VALUE[,PREFIX:NAME=VALUE]")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "compare_kernels.json"),
@@ -225,7 +275,7 @@ def main() -> int:
         if not torch.cuda.is_available():
             print("compare_kernels: no CUDA device", file=sys.stderr)
             return 2
-        print(json.dumps(time_tree(args.define, kernels)), flush=True)
+        print(json.dumps(time_tree(args.define, kernels, args.route_muls)), flush=True)
         return 0
 
     if not args.first_form and not args.variants:
@@ -243,6 +293,8 @@ def main() -> int:
     raw = out[: -len(".json")] + "_runs.json" if out.endswith(".json") else out + "_runs"
     for label, root, defines in turns:
         cmd = [sys.executable, os.path.abspath(__file__), "--time-tree", root, "--kernels", ",".join(kernels)]
+        if args.route_muls:
+            cmd.append("--route-muls")
         for d in defines:
             cmd += ["--define", d]
         done = subprocess.run(cmd, capture_output=True, text=True, timeout=1800)
@@ -267,7 +319,8 @@ def main() -> int:
                # a tree's libraries are built (and ptxas heard) in its first turn only
                "ptxas": {label: r["ptxas"] for label, r in reversed(runs) if r["ptxas"]},
                "libraries": {label: r["libraries"] for label, r in reversed(runs) if r["libraries"]},
-               "sass": {label: r["sass"] for label, r in runs}}
+               "sass": {label: r["sass"] for label, r in runs},
+               "route_muls": [(label, r.get("route_muls")) for label, r in runs if r.get("route_muls")]}
     if args.first_form:  # libraries of one name in both trees: is the machine code the same?
         first, mine = runs[0][1]["sass"], runs[1][1]["sass"]
         summary["sass_equal"] = {t: first[t] == mine[t] for t in first.keys() & mine.keys()

@@ -14,8 +14,8 @@
 // (ops/ext.py) feed their coefficient planes in place, where the reference
 // first gathers (and negates) an (L, S*T, B) copy of each operand.
 //
-// Per thread: an exact (2 NL + 1)-word accumulator of the weighted sum (a
-// weight times a 2 NL-word product needs the extra word), then one Montgomery
+// Per thread: an exact (2 NL + 1)-word accumulator of the weighted sum
+// (stacked_acc.cuh, shared with K7), then one Montgomery
 // reduction and one conditional subtraction. The host wrapper
 // (ops/cuda_mul.py) checks max_g sum_r W[g, r] * N < R and 2 N < R: then the
 // reduced value is below 2 N and one subtraction makes it canonical.
@@ -31,39 +31,9 @@
 // device memory that every thread of a block reads at the same address.
 #include <cuda_runtime.h>
 #include "field.cuh"
+#include "stacked_acc.cuh"
 
 #define BLOCK 128
-#define ACC (2 * NL + 1)
-
-// acc += w * u * v   (acc has ACC words; the sum never leaves them)
-__device__ __forceinline__ void mac_weighted(uint32_t* acc, const uint32_t* u, const uint32_t* v,
-                                             uint32_t w) {
-    uint32_t wu[NL + 1];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-        c += (uint64_t)u[j] * w;
-        wu[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    wu[NL] = (uint32_t)c;
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-        c = 0;
-#pragma unroll
-        for (int j = 0; j <= NL; ++j) {
-            c += (uint64_t)wu[j] * v[i] + acc[i + j];
-            acc[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-#pragma unroll
-        for (int k = i + NL + 1; k < ACC; ++k) {
-            c += acc[k];
-            acc[k] = (uint32_t)c;
-            c >>= 32;
-        }
-    }
-}
 
 // acc = acc * R^{-1} (exact: acc + M N with the low NL words cancelled),
 // result in acc[NL .. 2 NL]

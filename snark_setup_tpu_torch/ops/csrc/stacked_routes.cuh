@@ -1,10 +1,11 @@
-// Shared pieces of the stacked product's three opt-in routes: the product
-// columns in the reference's 16-bit form (kernels K6 and K7) and the Montgomery
-// reduction as two constant Toeplitz products on the tensor cores (K7 and K8).
+// Shared pieces of the stacked product's opt-in routes: the product columns
+// in the reference's 16-bit form (kernel K6), the row maps and the
+// shared-memory opt-in (K6, K7, K8). K7 and K8's reduction is in
+// toeplitz_tc.cuh.
 //
-// Every route computes, per lane and output group g, from the stacked
-// operands u_r (row urow[r] of U, negated mod N where uneg[r]) and v_r (row
-// vrow[r] of V) with weights W[g, r]:
+// K6 computes, per lane and output group g, from the stacked operands u_r
+// (row urow[r] of U, negated mod N where uneg[r]) and v_r (row vrow[r] of V)
+// with weights W[g, r]:
 //
 //     c[k] = sum_r W[g, r] (sum_{i+j=k} lo16(a_i b_j) + sum_{i+j=k-1} hi16(a_i b_j))
 //
@@ -15,11 +16,9 @@
 // Layout: one block holds TILE lanes of one output group, one thread per
 // lane. Each thread's columns live in shared memory, column k of thread t at
 // cs[k * TILE + t] (consecutive threads on consecutive words: no bank
-// conflicts), so only the thread itself touches them until the reduction's
-// first barrier.
+// conflicts), so only the thread itself touches them.
 #pragma once
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "field.cuh"
 
@@ -101,111 +100,6 @@ __device__ __forceinline__ void school16_columns(uint32_t* cs, const uint32_t* _
 #pragma unroll 4
         for (int j = 0; j < L16; ++j) cs[(L16 + j) * TILE + tid] += w * win[j];
     }
-}
-
-// Byte k of lane n in the blocked (K x TILE) operand of a Toeplitz product:
-// [K / 16][TILE][16], so that every 16 x 16 fragment starts on a 256-byte
-// boundary (wmma loads want 256-bit alignment).
-__device__ __forceinline__ void bt_put(unsigned char* bt, int k, int n, uint32_t v) {
-    bt[((k >> 4) * TILE + n) * 16 + (k & 15)] = (unsigned char)v;
-}
-
-// Y (M x TILE int32, row-major, shared) = A (M x K bytes) . Bt (K x TILE
-// bytes) on the tensor cores: u8 x u8 -> s32 fragments of 16 x 16 x 16,
-// exact (every sum < 2^24). A is the constant matrix in device memory,
-// blocked as [K / 16][M][16]; Bt the byte planes in shared memory, blocked
-// as `bt_put` writes them. The two warps of the block share out the
-// (M / 16) x (TILE / 16) output fragments.
-template <int M, int K>
-__device__ __forceinline__ void toeplitz_product(const unsigned char* __restrict__ A,
-                                                 const unsigned char* Bt, int* Y) {
-    using namespace nvcuda;
-    constexpr int NT = TILE / 16;
-    constexpr int NW = TILE / 32;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll 1
-    for (int f = warp; f < (M / 16) * NT; f += NW) {
-        const int mi = f / NT, ni = f % NT;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-        wmma::fill_fragment(acc, 0);
-#pragma unroll 1
-        for (int kt = 0; kt < K / 16; ++kt) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, unsigned char, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, unsigned char, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, A + ((int64_t)kt * M + mi * 16) * 16, 16);
-            wmma::load_matrix_sync(fb, Bt + ((int64_t)kt * TILE + ni * 16) * 16, 16);
-            wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(Y + mi * 16 * TILE + ni * 16, acc, TILE, wmma::mem_row_major);
-    }
-}
-
-// The reference's _redc_v2_kernel for this thread's lane: from the columns
-// cs (2 L16 x TILE, each < 2^32) to the canonical Montgomery product
-// (res, NL words).
-//
-//   m16 = fold(T_low4 . bytes4(c[:L16]))   (unresolved low columns: mod R
-//                                            drops what escapes them)
-//   m   = resolve(m16) mod R
-//   u16 = fold(T_full . bytes2(m))         (u = m N)
-//   s   = resolve(c + u16); res = s[L16:] - N if >= N
-//
-// `fused_s` = 0 resolves c before adding u16, as the reference does where
-// c + u16 might not fit 32 bits; the carries here run in 64 bits, so both
-// orders give the same exact value. Every thread of the block must call
-// this (it holds __syncthreads); bt (4 L16 x TILE bytes) and ys (4 L16 x
-// TILE int32) are shared scratch, cs is read and not written.
-__device__ __forceinline__ void toeplitz_redc(const uint32_t* cs, unsigned char* bt, int* ys,
-                                              const unsigned char* __restrict__ tlow,
-                                              const unsigned char* __restrict__ tfull, int fused_s,
-                                              uint32_t* res) {
-    const int tid = threadIdx.x;
-#pragma unroll 4
-    for (int i = 0; i < L16; ++i) {
-        const uint32_t c = cs[i * TILE + tid];
-        bt_put(bt, i, tid, c & 0xFFu);
-        bt_put(bt, L16 + i, tid, (c >> 8) & 0xFFu);
-        bt_put(bt, 2 * L16 + i, tid, (c >> 16) & 0xFFu);
-        bt_put(bt, 3 * L16 + i, tid, c >> 24);
-    }
-    __syncthreads();
-    toeplitz_product<2 * L16, 4 * L16>(tlow, bt, ys);
-    __syncthreads();
-    // rows r < L16 are byte digit 2r of m, rows L16 + r digit 2r + 1
-    uint32_t carry = 0;
-#pragma unroll 4
-    for (int r = 0; r < L16; ++r) {
-        const uint64_t v = (uint64_t)(uint32_t)ys[r * TILE + tid] +
-                           ((uint64_t)(uint32_t)ys[(L16 + r) * TILE + tid] << 8) + carry;
-        const uint32_t m = (uint32_t)v & 0xFFFFu;
-        carry = (uint32_t)(v >> 16);
-        bt_put(bt, r, tid, m & 0xFFu);
-        bt_put(bt, L16 + r, tid, m >> 8);
-    }
-    __syncthreads();
-    toeplitz_product<4 * L16, 2 * L16>(tfull, bt, ys);
-    __syncthreads();
-    uint64_t cc = 0, sc = 0;
-#pragma unroll
-    for (int k = 0; k < 2 * L16; ++k) {
-        const uint64_t u16 = (uint64_t)(uint32_t)ys[k * TILE + tid] +
-                             ((uint64_t)(uint32_t)ys[(2 * L16 + k) * TILE + tid] << 8);
-        uint64_t ck = cs[k * TILE + tid];
-        if (!fused_s) {
-            ck += cc;
-            cc = ck >> 16;
-            ck &= 0xFFFFu;
-        }
-        const uint64_t v = ck + u16 + sc;
-        sc = v >> 16;
-        if (k >= L16) {
-            const int j = k - L16;
-            const uint32_t limb = (uint32_t)v & 0xFFFFu;
-            if (j & 1) res[j >> 1] |= limb << 16;
-            else res[j >> 1] = limb;
-        }
-    }
-    cond_sub_store(res, res);  // s[L16:] < 2N (the wrapper checks sum W * N < R, 2N < R)
 }
 
 // Shared memory above the default 48 KB needs the opt-in attribute, set

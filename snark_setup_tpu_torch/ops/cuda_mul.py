@@ -72,6 +72,7 @@ class StackedMul:
         self._tables: dict = {}
         self._checked: set = set()
         self._fn = None
+        self._lib = None
         self.launches = 0
         self.plain_calls = 0
         # when set to a list, every launch appends its (start, end) CUDA
@@ -164,7 +165,7 @@ class StackedMul:
             target = f"{self.TARGET}_nl{self.NL}"
             if target not in TARGETS:
                 raise NotImplementedError(f"no {self.TARGET} kernel is instantiated for {self.L} limbs")
-            lib = load(target)
+            lib = self._lib = load(target)
             if getattr(lib, f"{self.TARGET}_nl")() != self.NL:
                 raise RuntimeError(f"{target} was built for another limb count")
             fn = getattr(lib, f"{self.TARGET}_launch")
@@ -187,6 +188,14 @@ class StackedMul:
     def _out(self, G: int, B: int, dev) -> torch.Tensor:
         return torch.empty((self.L, G, B), dtype=torch.int32, device=dev)
 
+    def _consts_ptr(self, dev) -> int:
+        """The launch's `consts` argument: a device copy of the FieldConsts
+        block, which the kernel uploads to constant memory."""
+        consts = self._consts_dev.get(dev)
+        if consts is None:
+            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
+        return consts.data_ptr()
+
     def _extra_args(self, weights, dev) -> tuple:
         """Launch arguments after the field constants (EXTRA_ARGTYPES)."""
         return ()
@@ -197,9 +206,7 @@ class StackedMul:
         out = self._out(G, B, dev)
         if B == 0 or G == 0:
             return out
-        consts = self._consts_dev.get(dev)
-        if consts is None:
-            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
+        consts = self._consts_ptr(dev)
         table = self._table(weights, rows, dev)
         extra = self._extra_args(weights, dev)
         fn = self._launch_fn()
@@ -210,7 +217,7 @@ class StackedMul:
                 start.record(stream)
             err = fn(
                 U.data_ptr(), V.data_ptr(), out.data_ptr(), table.data_ptr(),
-                B, S, G, U.shape[1], V.shape[1], consts.data_ptr(), *extra, stream.cuda_stream,
+                B, S, G, U.shape[1], V.shape[1], consts, *extra, stream.cuda_stream,
             )
         if err != 0:
             raise RuntimeError(f"{self.TARGET} kernel launch failed: CUDA error {err}")

@@ -10,9 +10,10 @@ row maps and per-row negation (ops/cuda_mul.py), and the same checks:
   column i + j + 1. `MxuStacked` reduces them with
   `FpOps.redc_cols_matmul` (the route of SNARK_SETUP_MXU_STACKED).
   Replaces PallasFieldMul.cols (ops/pallas_field.py).
-- K7 `StackedMulV3` (``csrc/stacked_mul_v3.cu``): K6's columns, then the
-  Montgomery reduction as two constant Toeplitz products over byte planes
-  (tensor cores on the card). Replaces PallasFieldMul.v3.
+- K7 `StackedMulV3` (``csrc/stacked_mul_v3.cu``): K5's exact 32-bit
+  schoolbook, then the Montgomery reduction as two constant Toeplitz
+  products over the two byte planes of the resolved sum, on the tensor
+  cores (``csrc/toeplitz_tc.cuh``). Replaces PallasFieldMul.v3.
 - K8 `StackedMulV2` (``csrc/stacked_mul_v2.cu``): the product as three
   float32 byte-plane column sums A1, A2, A3, then K7's reduction; only for
   weights that `v2_bounds` accepts (it raises on others). Replaces
@@ -20,10 +21,11 @@ row maps and per-row negation (ops/cuda_mul.py), and the same checks:
 
 K7 and K8 return the canonical Montgomery product: K5's limbs, for every
 input they take. A CUDA tensor launches the route's kernel (or raises); a
-CPU tensor runs its plain version, which follows the kernel's arithmetic
-(the column form, float64 products for the Toeplitz matrices — exact for
-these integers below 2^24 whatever the TF32 flags say — and float32
-A-planes for K8).
+CPU tensor runs its plain version, which takes the reference's route (the
+16-bit column form, the reference's four-plane Toeplitz reduction in
+float64 products — exact for these integers below 2^24 whatever the TF32
+flags say — and float32 A-planes for K8). The kernels' own arithmetic is
+rehearsed on the CPU by tests/test_torch_toeplitz_tc.py.
 
 `StackedProduct` picks the route at every call in the reference's order
 (ops/ext_jax.py: mul_stacked): K8 where SNARK_SETUP_KERNEL_V2 is set and the
@@ -47,7 +49,9 @@ from .toeplitz import (
     kernel_v2_enabled,
     kernel_v3_enabled,
     mxu_stacked_forced,
+    mma_fragments,
     redc_matrices,
+    tc_matrices,
     v2_bounds,
     v2_supported,
 )
@@ -169,10 +173,21 @@ class StackedCols(StackedMul):
 
 
 class StackedMulV3(StackedMul):
-    """K7 wrapper: canonical (L, G, B) products by the Toeplitz reduction."""
+    """K7 wrapper: canonical (L, G, B) products, K5's schoolbook into the
+    tensor-core Toeplitz reduction. The kernel takes the modulus by value
+    (`tc_consts`, a host buffer) and the two constant matrices packed as
+    tensor-core fragments (`fragments`, one device buffer)."""
 
     TARGET = "stacked_mul_v3"
-    EXTRA_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p)
+    EXTRA_ARGTYPES = (ctypes.c_void_p,)
+
+    def __init__(self, fq: FpOps):
+        super().__init__(fq)
+        q = fq.modulus
+        # csrc/toeplitz_tc.cuh: TcConsts, the kernel's by-value parameter
+        self.tc_consts = np.array([(q >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)], np.uint32)
+        mats = tc_matrices(q, fq.spec.n0_inv, self.L)
+        self._fragments = np.concatenate([mma_fragments(T) for T in mats])
 
     def check_weights(self, weights, S: int) -> None:
         super().check_weights(weights, S)
@@ -181,32 +196,39 @@ class StackedMulV3(StackedMul):
     def plain_fn(self, U, V, weights):
         return stacked_mul_v3_plain(self.fq, U, V, weights)
 
-    def blocked_matrices(self, dev) -> tuple[torch.Tensor, torch.Tensor]:
-        """T_low4 and T_full as uint8 on `dev`, each (M, K) matrix blocked as
-        [K / 16][M][16] so that every 16 x 16 tensor-core fragment starts on
-        a 256-byte boundary."""
-        key = ("blocked", dev)
-        mats = self._tables.get(key)
-        if mats is None:
-            out = []
-            for T in redc_matrices(self.fq.modulus, self.fq.spec.n0_inv, self.L):
-                M, K = T.shape
-                blk = np.ascontiguousarray(T.astype(np.uint8).reshape(M, K // 16, 16).transpose(1, 0, 2))
-                out.append(torch.from_numpy(blk).to(dev))
-            mats = self._tables[key] = tuple(out)
-        return mats
+    def fragments(self, dev) -> torch.Tensor:
+        """T_low2 then T_full (`tc_matrices`) as `mma_fragments`, one uint8
+        buffer on `dev`."""
+        key = ("fragments", dev)
+        buf = self._tables.get(key)
+        if buf is None:
+            buf = self._tables[key] = torch.from_numpy(self._fragments).to(dev)
+        return buf
+
+    def _launch_fn(self):
+        if self._fn is None:
+            fn = super()._launch_fn()
+            built = getattr(self._lib, f"{self.TARGET}_tc_bytes")()
+            if built != self._fragments.size:
+                self._fn = None
+                raise RuntimeError(f"{self.TARGET} was built for {built} bytes of matrices, "
+                                   f"not {self._fragments.size}")
+            return fn
+        return self._fn
+
+    def _consts_ptr(self, dev) -> int:
+        return self.tc_consts.ctypes.data
 
     def _extra_args(self, weights, dev) -> tuple:
-        tlow, tfull = self.blocked_matrices(dev)
-        return tlow.data_ptr(), tfull.data_ptr()
+        return (self.fragments(dev).data_ptr(),)
 
 
 class StackedMulV2(StackedMulV3):
     """K8 wrapper: raises on weights that `v2_bounds` refuses, as the
-    reference asserts; the dispatcher decides which products come here."""
+    reference asserts; the dispatcher decides which products come here.
+    K7's launch arguments."""
 
     TARGET = "stacked_mul_v2"
-    EXTRA_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int)
 
     def check_weights(self, weights, S: int) -> None:
         StackedMul.check_weights(self, weights, S)
@@ -215,9 +237,6 @@ class StackedMulV2(StackedMulV3):
 
     def plain_fn(self, U, V, weights):
         return stacked_mul_v2_plain(self.fq, U, V, weights)
-
-    def _extra_args(self, weights, dev) -> tuple:
-        return (*super()._extra_args(weights, dev), int(v2_bounds(self.L, weights)[1]))
 
 
 class MxuStacked:

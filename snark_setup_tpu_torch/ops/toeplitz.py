@@ -75,6 +75,41 @@ def redc_matrices(modulus: int, n0_inv: int, L: int):
     return build(Np8, 2 * L, 4), build(N8, 4 * L, 2)
 
 
+def tc_matrices(modulus: int, n0_inv: int, L: int):
+    """The two constant byte matrices of the port's tensor-core reduction
+    (kernels K7 and K8, csrc/toeplitz_tc.cuh), uint8, over byte digits in
+    their natural order (not `redc_matrices`' blocked one):
+
+    T_low2 (2L, 2L): row d gives byte digit d of c * N' from the 2L bytes
+    of c mod R (column i = byte i); T_full (4L, 2L): row d gives byte digit
+    d of m * N from the 2L bytes of m. Entry [d, i] is byte d - i of N'
+    (n0_inv = -N^{-1} mod R) or of N, 0 where d - i is no byte index."""
+
+    def toeplitz(v: int, rows: int) -> np.ndarray:
+        coef = np.array([(v >> (8 * k)) & 0xFF for k in range(2 * L)], np.uint8)
+        d = np.arange(rows)[:, None] - np.arange(2 * L)[None, :]
+        return np.where((d >= 0) & (d < 2 * L), coef[np.clip(d, 0, 2 * L - 1)], 0).astype(np.uint8)
+
+    return toeplitz(n0_inv, 2 * L), toeplitz(modulus, 4 * L)
+
+
+def mma_fragments(T: np.ndarray) -> np.ndarray:
+    """T (M, K) uint8 as the A operands of PTX `mma.sync.m16n8k32` (u8), flat
+    uint8: T zero-padded to whole tiles of 16 rows by 32 columns, tile
+    (j, ks) (rows 16 j.., columns 32 ks..) at byte 512 (j KS + ks) with KS
+    = ceil(K / 32), and in it thread `lid`'s four 32-bit registers at bytes
+    16 lid .. 16 lid + 15: rows g, g + 8, g, g + 8 by columns 4 tig .. 4 tig
+    + 3, the same, 16 + 4 tig .., the same (g = lid // 4, tig = lid % 4),
+    each register's bytes in column order (PTX ISA, the A fragment of
+    m16n8k32 for 8-bit types)."""
+    M, K = T.shape
+    mt, ks = -(-M // 16), -(-K // 32)
+    P = np.zeros((mt * 16, ks * 32), np.uint8)
+    P[:M, :K] = T
+    blk = P.reshape(mt, 2, 8, ks, 2, 4, 4)  # j, row // 8, g, ks, column // 16, tig, byte
+    return np.ascontiguousarray(blk.transpose(0, 3, 2, 5, 4, 1, 6)).reshape(-1)
+
+
 def v2_bounds(L: int, weights) -> tuple[bool, bool]:
     """(supported, fused_s) for the f32 byte-plane schoolbook: every A-plane
     must stay exact in f32 (< 2^24) and the combined columns must fit 32

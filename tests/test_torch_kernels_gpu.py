@@ -417,3 +417,103 @@ def test_glv_kernels_on_non_contiguous_operands_on_the_card(curve, group):
         for k in "xyz":
             assert torch.equal(got_p[k], want_p[k]), k
     torch.cuda.synchronize()
+
+
+# K7 and K8 at chip_smoke.py's ROUTE_SHAPES: K7 at every STACKED shape (the
+# towers' row maps and negations come from F._flattened, the largest weights
+# are MNT4-753 Fp2's 3 x 14), K8 at the degree-1 shapes v2_supported takes
+_ID = lambda n: tuple(tuple(int(i == j) for j in range(n)) for i in range(n))
+ROUTE_MAIN = [("k7", *shape) for shape in STACKED_MAIN] + [
+    ("k8", "bls12_377", "g1", _ID(32)),
+    ("k8", "mnt4_753", "g1", _ID(6)),
+    ("k8", "mnt4_753", "g1", ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1))),
+]
+
+
+def _route_planes(fq, S, B, rng):
+    """(L, S, B) planes of values < N on the card, lanes 0, 1, 2 holding 0,
+    1 and N - 1 (as far as the width goes)."""
+    from snark_setup_tpu_torch.fields.limb import int_to_limbs
+
+    a = rng.integers(0, 1 << 16, size=(fq.L, S, B), dtype=np.int64)
+    a[-1] = rng.integers(0, int(fq.N[-1, 0]), size=a.shape[1:])
+    for lane, v in enumerate((0, 1, fq.modulus - 1)[:B]):
+        a[:, :, lane] = int_to_limbs(v, fq.L).astype(np.int64)[:, None]
+    return torch.from_numpy(a.astype(np.int32)).to("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 2, 63, 65, 4097, 16384])
+@pytest.mark.parametrize("route,curve,group,weights", ROUTE_MAIN)
+def test_k7_k8_equal_plain_versions_at_the_main_path_shapes_on_the_card(route, curve, group, weights, B):
+    """K7 / K8 against their own plain versions and K5's plain version (run
+    on the card in lane chunks), limb for limb, at widths 1, 2, a warp's
+    63 / 65 lanes, 4097 and 16384, with the edge values in lanes 0-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_plain
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    comp, rows = (weights, (tuple(range(S)),) * 2 + ((0,) * S,)) if F.degree == 1 else F._flattened(weights, S)
+    rng = np.random.default_rng(41)
+    U, V = _route_planes(fq, F.degree * S, B, rng), _route_planes(fq, F.degree * S, B, rng)
+    K = getattr(stacked_product_for(fq.modulus), route)
+    n = K.launches
+    with torch.no_grad():
+        got = K(U, V, comp, rows)
+        torch.cuda.synchronize()
+        assert K.launches == n + 1 and got.shape == (fq.L, len(comp), B)
+        Ug, Vg = K.gather(U, V, rows)
+        chunks = range(0, B, 1024)
+        want = torch.cat([K.plain_fn(Ug[..., lo:lo + 1024], Vg[..., lo:lo + 1024], comp) for lo in chunks], dim=-1)
+        k5 = torch.cat([stacked_mul_plain(fq, Ug[..., lo:lo + 1024], Vg[..., lo:lo + 1024], comp)
+                        for lo in chunks], dim=-1)
+    assert torch.equal(got, want)
+    assert torch.equal(got, k5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["k7", "k8"])
+@pytest.mark.parametrize("curve", ["bls12_377", "mnt4_753"])
+def test_k7_k8_row_maps_negation_views_and_refusals_on_the_card(curve, route):
+    """Row maps that repeat and skip rows, negated operands (0 stays 0),
+    a non-contiguous U: equal to K5's plain version on the gathered
+    operands. Weights the wrapper refuses raise before any launch: the
+    REDC bound (both), the 16-bit column bound (K7), v2_bounds (K8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_plain
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+    fq = curve_ops(curve, "g1").field.fp
+    K = getattr(stacked_product_for(fq.modulus), route)
+    rng = np.random.default_rng(43)
+    B = 4097
+    wide = _route_planes(fq, 3, 2 * B, rng)
+    U = wide[..., ::2]  # lanes 0, 2, 4 of `wide`: 0, N - 1, ...
+    assert not U.is_contiguous()
+    V = _route_planes(fq, 3, B, rng)
+    rows = ((2, 0, 1, 2), (1, 1, 0, 2), (1, 0, 1, 0))
+    weights = ((1, 0, 1, 0), (0, 1, 0, 1))
+    n = K.launches
+    with torch.no_grad():
+        got = K(U, V, weights, rows)
+        torch.cuda.synchronize()
+        want = stacked_mul_plain(fq, *K.gather(U.contiguous(), V, rows), weights)
+    assert K.launches == n + 1
+    assert torch.equal(got, want)
+    redc = fq.spec.mont_r_pow // fq.modulus + 1
+    too_big = [((redc,),)]
+    if route == "k8":
+        from snark_setup_tpu_torch.ops.toeplitz import v2_bounds
+
+        too_big.append(((next(s for s in range(1, 64) if not v2_bounds(fq.L, ((s,),))[0]),),))
+    else:
+        too_big.append((((1 << 15) // fq.L + 1,),))
+    for w in too_big:
+        with pytest.raises(ValueError):
+            K(U[:, :1], V[:, :1], w)
+    assert K.launches == n + 1
