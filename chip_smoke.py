@@ -22,7 +22,9 @@ MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
 elsewhere), each response byte-identical to the default route's from the
 same challenge and seed, and the batch scalar-mul under the routes at the
 other limb count (host-oracle spot checks; the seconds inside each kernel
-summed from its launch events, as on the contribute and route paths). Each path runs with every kernel's launch count set to 0
+summed from its launch events, as on the contribute and route paths; under
+SNARK_SETUP_MXU_STACKED also the seconds of the float64 reduction after
+K6, from events around each reduction). Each path runs with every kernel's launch count set to 0
 just before it and read just after; every kernel must have launched on its
 path, and no plain version may have run there.
 
@@ -43,7 +45,11 @@ larger of
     K5 counts it, whatever their own algorithm; the Toeplitz products of K7
     and K8 (u8 x u8 -> s32 on the tensor cores) add 989.5e12 multiply-adds
     /s (the data sheet's 1979 dense int8 TOP/s) on their own unit, the
-    units overlapping.
+    units overlapping. Beside the bound, K8's rows carry its own floor,
+    its f32 FMAs (`fma_floor_ms`). K6's own floor (a mad.lo and a mad.hi
+    per 16x16 limb product) depends on the rate of IMAD.HI, which no data
+    sheet gives: scripts/imad_rate.py measures that rate and prints the
+    floor at K6's shapes.
 The group-op kernel's rows (K2, one team of threads per lane on
 csrc/field_team.cuh) time each launch by its own CUDA events (`ms`; the
 wrapper's host time per call exceeds the kernel's, so a loop of calls,
@@ -900,19 +906,41 @@ def switched(name: str):
             os.environ[name] = old
 
 
+def mxu_reducers(curves) -> dict:
+    """The MXU route object (K6, then the float64 reduction) of each
+    curve's base field, by label: its `events` time the reductions."""
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    return {f"redc_cols_matmul[{c}]": stacked_product_for(curve_ops(c, "g1").field.fp.modulus).mxu
+            for c in curves}
+
+
+def reduction_ms(reducers: dict) -> dict:
+    """Milliseconds between each reducer's (start, end) events, summed;
+    the events are cleared."""
+    out = {k: sum(a.elapsed_time(b) for a, b in m.events) for k, m in reducers.items() if m.events}
+    for m in reducers.values():
+        m.events = None
+    return out
+
+
 def route_phase(dev, curve: str, power: int, batch: int, switch: str, default_dir: str,
-                wrappers: dict) -> None:
+                wrappers: dict, reducers: dict | None = None) -> None:
     """`contribute` through the port's CLI under one route switch, on the
     challenge and seed that the default route's path left in `default_dir`:
-    the response must equal that path's, byte for byte."""
+    the response must equal that path's, byte for byte. `reducers`
+    (`mxu_reducers`) also time the MXU route's reduction after K6."""
     import torch
 
     from snark_setup_tpu_torch.cli import phase1_main
 
+    reducers = reducers or {}
+
     common = ["--curve-kind", curve, "--proving-system", "groth16", "--contribution-mode",
               "full", "--power", str(power), "--batch-size", str(batch), "--device", dev.type]
     src = lambda name: os.path.join(default_dir, name)
-    for w in wrappers.values():
+    for w in (*wrappers.values(), *reducers.values()):
         w.events = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_route_") as tmp, switched(switch):
         out = os.path.join(tmp, "response")
@@ -930,9 +958,11 @@ def route_phase(dev, curve: str, power: int, batch: int, switch: str, default_di
     kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items()}
     for w in wrappers.values():
         w.events = None
+    red_ms = reduction_ms(reducers)
     emit({"phase": "route", "curve": curve, "switch": switch, "power": power, "batch_size": batch,
           "wall_seconds": secs, "response_bytes": len(got), "equal_to_default_route": True,
-          "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3})
+          "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3,
+          "reduction_ms": red_ms, "reduction_seconds_total": sum(red_ms.values()) / 1e3})
 
 
 ROUTE_SCALAR_MULS = (  # (curve, group, route): the routes at the other limb count
@@ -941,26 +971,28 @@ ROUTE_SCALAR_MULS = (  # (curve, group, route): the routes at the other limb cou
 )
 
 
-def route_scalar_mul_phase(dev, batch: int, wrappers: dict) -> list[dict]:
+def route_scalar_mul_phase(dev, batch: int, wrappers: dict, reducers: dict | None = None) -> list[dict]:
     """The batch scalar-mul entry point under a route switch where the
     routes meet the other limb count: BLS12-377 G2 under KERNEL_V2 (K8 at
     NL 12: the endomorphism's beta planes), MNT4-753 G1 and MNT6-753 G2
     under KERNEL_V3 (K7 at NL 24) and MXU_STACKED (K6 at NL 24); host-oracle
     spot checks on four lanes each. `wrappers` maps a label to each kernel
     wrapper whose time inside each call is summed from its launch events
-    (the labels with none are left out). Returns the phase's records."""
+    (the labels with none are left out), `reducers` (`mxu_reducers`) the
+    MXU route's reductions. Returns the phase's records."""
     import numpy as np
     import torch
 
     from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
     from snark_setup_tpu_torch.shard import runtime
 
+    reducers = reducers or {}
     records = []
     for ci, (curve, group, route) in enumerate(ROUTE_SCALAR_MULS):
         ops = curve_ops(curve, group)
         rng = np.random.default_rng(SEED + 900 + ci)
         pts, scalars, ks, affine = make_inputs(ops, batch, rng, dev, edge=False, projective=False)
-        for w in wrappers.values():
+        for w in (*wrappers.values(), *reducers.values()):
             w.events = []
         try:
             with switched(ROUTES[route][0]):
@@ -969,8 +1001,9 @@ def route_scalar_mul_phase(dev, batch: int, wrappers: dict) -> list[dict]:
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
             kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items() if w.events}
+            red_ms = reduction_ms(reducers)
         finally:
-            for w in wrappers.values():
+            for w in (*wrappers.values(), *reducers.values()):
                 w.events = None
         lanes = [0, batch // 3, batch // 2, batch - 1]
         got = ops.to_affine_host(PointVec({k: v[..., lanes].contiguous() for k, v in out.items()}))
@@ -980,7 +1013,8 @@ def route_scalar_mul_phase(dev, batch: int, wrappers: dict) -> list[dict]:
                                      f"lane {lane} differs from the host oracle")
         record = {"phase": "route", "config": f"scalar_mul {curve}/{group}", "switch": ROUTES[route][0],
                   "batch": batch, "seconds": secs, "oracle_lanes": lanes, "oracle_ok": True,
-                  "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3}
+                  "kernel_ms": kernel_ms, "kernel_seconds_total": sum(kernel_ms.values()) / 1e3,
+                  "reduction_ms": red_ms}
         emit(record)
         records.append(record)
     return records
@@ -1551,11 +1585,12 @@ def main() -> int:
             ("bls12_377 v3", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k7"][0],
                                                  dirs["bls12_377 p16"], on_path("bls12_377 v3"))),
             ("bls12_377 mxu", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k6"][0],
-                                                  dirs["bls12_377 p16"], on_path("bls12_377 mxu"))),
+                                                  dirs["bls12_377 p16"], on_path("bls12_377 mxu"),
+                                                  mxu_reducers(("bls12_377",)))),
             ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
                                                 dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
             ("route scalar-muls", lambda: route_scalar_mul_phase(
-                dev, BATCH, {r["_label"]: r["_wrapper"] for r in rows})),
+                dev, BATCH, {r["_label"]: r["_wrapper"] for r in rows}, mxu_reducers(("mnt4_753", "mnt6_753")))),
             # the ladder's other modes on BLS12-377 (K3 + K4 on G1, K3 on G2)
             ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH)),
             ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH)),

@@ -83,15 +83,22 @@ def smoke():
 
 
 def sass_digest(lib: str) -> dict | None:
-    """The SASS instruction count of a built library and a hash of its
-    instruction lines (`cuobjdump -sass`); None where the toolkit's
+    """The SASS instruction count of a built library, a hash of its
+    instruction lines (`cuobjdump -sass`) and its most frequent opcodes
+    (with their modifiers, e.g. IMAD.HI.U32); None where the toolkit's
     `cuobjdump` is not found."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
     text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True, timeout=300).stdout
     lines = [ln.strip() for ln in text.splitlines() if re.search(r"/\*[0-9a-f]{4}\*/", ln)]
-    return {"instructions": len(lines), "sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]}
+    ops = {}
+    for ln in lines:
+        m = re.match(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if m:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return {"instructions": len(lines), "sha256": hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16],
+            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1])[:16])}
 
 
 def stacked_shapes(cs, kernel: str) -> list:
@@ -198,8 +205,9 @@ def time_tree(defines=(), kernels=KERNELS, route_muls=False) -> dict:
                         Uw, Vw = U[..., :w].contiguous(), V[..., :w].contiguous()
                         ms[f"{kern} {curve} {label} {w}"] = cs.launch_ms(K, lambda: K(Uw, Vw, comp, maps), REPEATS)
                     got = K(U[..., :cs.RAGGED].contiguous(), V[..., :cs.RAGGED].contiguous(), comp, maps)
+                    words = got.long() & 0xFFFFFFFF  # K6's 32-bit columns read as unsigned
                     out["checksum"][f"{kern} {curve} {label}"] = int(
-                        (got.long() * torch.arange(1, got.numel() + 1, device=dev).view_as(got)).sum())
+                        (words * torch.arange(1, got.numel() + 1, device=dev).view_as(got)).sum())
         if route_muls:
             from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
 
@@ -207,7 +215,8 @@ def time_tree(defines=(), kernels=KERNELS, route_muls=False) -> dict:
             for curve in ("bls12_377", "mnt4_753", "mnt6_753"):
                 P = stacked_product_for(curve_ops(curve, "g1").field.fp.modulus)
                 wrappers.update({f"{k} {curve}": getattr(P, k) for k in ("k5", "k6", "k7", "k8")})
-            out["route_muls"] = cs.route_scalar_mul_phase(dev, cs.BATCH, wrappers)
+            out["route_muls"] = cs.route_scalar_mul_phase(dev, cs.BATCH, wrappers,
+                                                          cs.mxu_reducers(("mnt4_753", "mnt6_753")))
     mine = [t for t in build.build_logs if any(t.startswith(p) for k in kernels for p in LIBS[k])]
     out["ptxas"] = {t: [ln.strip() for ln in build.build_logs[t].splitlines()
                         if "registers" in ln or "spill" in ln or "smem" in ln] for t in mine}

@@ -54,31 +54,8 @@
 #define TL_BYTES (M1 * KS * 512)
 #define TC_BYTES ((M1 + M2) * KS * 512)
 
-// The routes' field constants, by value: the kernels' __grid_constant__
-// parameter, packed by the host wrapper (ops/cuda_routes.py). n0 and N'
-// are folded into T_low2.
-struct TcConsts {
-    uint32_t N[NL];
-};
-
-// field.cuh's cond_neg and cond_sub_store with N by value (those read the
-// constant-memory block that K5 and K6 upload before each launch)
-__device__ __forceinline__ void cond_neg_n(uint32_t* a, uint32_t neg, const uint32_t* N) {
-    uint32_t d[NL];
-    uint32_t nz = 0;
-    int64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-        nz |= a[j];
-        c += (int64_t)N[j] - (int64_t)a[j];
-        d[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    const uint32_t m = (neg && nz) ? 0xFFFFFFFFu : 0u;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) a[j] = (d[j] & m) | (a[j] & ~m);
-}
-
+// TcConsts (the modulus by value) and cond_neg_n are in stacked_routes.cuh,
+// shared with K6; cond_sub_n is field.cuh's cond_sub_store with N by value.
 __device__ __forceinline__ void cond_sub_n(uint32_t* r, const uint32_t* t, const uint32_t* N) {
     uint32_t d[NL];
     int64_t c = 0;

@@ -5,9 +5,11 @@ Every route takes K5's arguments, `(U, V, weights, rows=None)` with the same
 row maps and per-row negation (ops/cuda_mul.py), and the same checks:
 
 - K6 `StackedCols` (``csrc/stacked_cols.cu``): the weighted product columns
-  in the reference's form, not reduced — (2L, G, B) int64 columns, the low
+  in the reference's form, not reduced — (2L, G, B) 32-bit columns, the low
   16 bits of every limb product in column i + j and the high 16 bits in
-  column i + j + 1. `MxuStacked` reduces them with
+  column i + j + 1, in a torch.int32 tensor read as unsigned (the
+  reference's uint32: a column can reach 2^32 - 1). `MxuStacked` reduces
+  them with
   `FpOps.redc_cols_matmul` (the route of SNARK_SETUP_MXU_STACKED).
   Replaces PallasFieldMul.cols (ops/pallas_field.py).
 - K7 `StackedMulV3` (``csrc/stacked_mul_v3.cu``): K5's exact 32-bit
@@ -73,8 +75,9 @@ def _cols16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def stacked_cols_plain(fq: FpOps, U: torch.Tensor, V: torch.Tensor, weights) -> torch.Tensor:
-    """Plain version of K6: U, V (L, S, B) int32 -> (2L, G, B) int64
-    weighted columns in the reference's form."""
+    """Plain version of K6: U, V (L, S, B) int32 -> (2L, G, B) weighted
+    columns in the reference's form, 32-bit words in an int32 tensor (read
+    them as unsigned: `& 0xFFFFFFFF` after widening)."""
     cols = _cols16(U.to(torch.int64), V.to(torch.int64))  # (2L, S, B)
     groups = []
     for g_w in weights:
@@ -83,7 +86,8 @@ def stacked_cols_plain(fq: FpOps, U: torch.Tensor, V: torch.Tensor, weights) -> 
             if w:
                 acc = acc + w * cols[:, s]
         groups.append(acc)
-    return torch.stack(groups, dim=1)
+    out = torch.stack(groups, dim=1)  # values in [0, 2^32): the same words as int32
+    return (out - ((out >> 31) << 32)).to(torch.int32)
 
 
 def _redc_mats(fq: FpOps, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -105,7 +109,7 @@ def toeplitz_redc_plain(fq: FpOps, c: torch.Tensor, fused_s: bool) -> torch.Tens
     `fused_s`), then one conditional subtraction. Returns (L, *batch) int32."""
     L = fq.L
     shape = c.shape
-    c = c.reshape(2 * L, -1).to(torch.int64)
+    c = c.reshape(2 * L, -1).to(torch.int64) & 0xFFFFFFFF  # K6's words are unsigned
     tlow, tfull = _redc_mats(fq, c.device)
     low = c[:L]
     y = (tlow @ torch.cat([low & 0xFF, (low >> 8) & 0xFF, (low >> 16) & 0xFF, low >> 24]).double()).long()
@@ -156,8 +160,23 @@ def _check_columns(L: int, weights) -> None:
         raise ValueError("column bound: 2 L * 2^16 * max_g sum_s W[g, s] >= 2^32")
 
 
-class StackedCols(StackedMul):
-    """K6 wrapper: (2L, G, B) int64 weighted columns, not reduced."""
+class _ByValueN(StackedMul):
+    """A route's wrapper whose kernel takes the modulus by value
+    (`tc_consts`, a host buffer: csrc/stacked_routes.cuh, TcConsts), with no
+    constant-memory copy before the launch."""
+
+    def __init__(self, fq: FpOps):
+        super().__init__(fq)
+        q = fq.modulus
+        self.tc_consts = np.array([(q >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)], np.uint32)
+
+    def _consts_ptr(self, dev) -> int:
+        return self.tc_consts.ctypes.data
+
+
+class StackedCols(_ByValueN):
+    """K6 wrapper: (2L, G, B) weighted columns, not reduced, as 32-bit
+    words in an int32 tensor (read as unsigned)."""
 
     TARGET = "stacked_cols"
 
@@ -169,10 +188,10 @@ class StackedCols(StackedMul):
         return stacked_cols_plain(self.fq, U, V, weights)
 
     def _out(self, G: int, B: int, dev) -> torch.Tensor:
-        return torch.empty((2 * self.L, G, B), dtype=torch.int64, device=dev)
+        return torch.empty((2 * self.L, G, B), dtype=torch.int32, device=dev)
 
 
-class StackedMulV3(StackedMul):
+class StackedMulV3(_ByValueN):
     """K7 wrapper: canonical (L, G, B) products, K5's schoolbook into the
     tensor-core Toeplitz reduction. The kernel takes the modulus by value
     (`tc_consts`, a host buffer) and the two constant matrices packed as
@@ -183,10 +202,7 @@ class StackedMulV3(StackedMul):
 
     def __init__(self, fq: FpOps):
         super().__init__(fq)
-        q = fq.modulus
-        # csrc/toeplitz_tc.cuh: TcConsts, the kernel's by-value parameter
-        self.tc_consts = np.array([(q >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)], np.uint32)
-        mats = tc_matrices(q, fq.spec.n0_inv, self.L)
+        mats = tc_matrices(fq.modulus, fq.spec.n0_inv, self.L)
         self._fragments = np.concatenate([mma_fragments(T) for T in mats])
 
     def check_weights(self, weights, S: int) -> None:
@@ -216,9 +232,6 @@ class StackedMulV3(StackedMul):
             return fn
         return self._fn
 
-    def _consts_ptr(self, dev) -> int:
-        return self.tc_consts.ctypes.data
-
     def _extra_args(self, weights, dev) -> tuple:
         return (self.fragments(dev).data_ptr(),)
 
@@ -245,12 +258,23 @@ class MxuStacked:
 
     def __init__(self, cols: StackedCols):
         self.cols = cols
+        # when set to a list, every reduction on the card appends its
+        # (start, end) CUDA events: the route's cost outside K6
+        self.events: list | None = None
 
     def _reduce(self, cols: torch.Tensor, weights) -> torch.Tensor:
         return self.cols.fq.redc_cols_matmul(cols, max(1, max(sum(g) for g in weights)))
 
     def __call__(self, U, V, weights, rows=None) -> torch.Tensor:
-        return self._reduce(self.cols(U, V, weights, rows), weights)
+        cols = self.cols(U, V, weights, rows)
+        if self.events is None or cols.device.type != "cuda":
+            return self._reduce(cols, weights)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._reduce(cols, weights)
+        end.record()
+        self.events.append((start, end))
+        return out
 
     def plain(self, U, V, weights, rows=None) -> torch.Tensor:
         return self._reduce(self.cols.plain(U, V, weights, rows), weights)

@@ -231,8 +231,11 @@ class FpOps:
         """Montgomery-reduce a column-space value V (< nprod * N^2, the sum
         of `nprod` `school_cols` results) to V * R^{-1} mod N as int32 limbs.
         Requires nprod * N < R, asserted: then the quotient is < 2N and one
-        conditional subtraction makes it canonical."""
+        conditional subtraction makes it canonical. Columns may also come as
+        32-bit words in an int32 tensor (K6's form), read as unsigned."""
         assert nprod * self.modulus < self.spec.mont_r_pow, "REDC bound violated"
+        if cols.dtype == torch.int32:
+            cols = cols.to(torch.int64) & 0xFFFFFFFF
         L = self.L
         bits = self._cols_bits(nprod)
         if bits + SHIFT + L.bit_length() > 62:
@@ -293,7 +296,8 @@ class FpOps:
     def redc_cols_matmul(self, cols: torch.Tensor, nprod: int = 1) -> torch.Tensor:
         """`redc_cols` with the two constant multiplies as matrix products:
         columns (2L, *batch) of a value < nprod * N^2, each < 2^32 (the
-        stacked-columns kernel's form) -> canonical (L, *batch) int32 limbs.
+        stacked-columns kernel's form: int64, or 32-bit words in an int32
+        tensor, read as unsigned) -> canonical (L, *batch) int32 limbs.
 
         The products run in float64, whose exactness for these integers
         (< 2^24) depends on no global flag (a float32 product on the card
@@ -302,7 +306,7 @@ class FpOps:
             raise ValueError("REDC bound violated: nprod * N >= R")
         L = self.L
         shape = cols.shape
-        flat = cols.reshape(2 * L, -1).to(torch.int64)
+        flat = cols.reshape(2 * L, -1).to(torch.int64) & 0xFFFFFFFF
         t = _resolve_carries(flat)
         T_low, T_full = self._toeplitz8(cols.device)
         m = _resolve_carries(self._fold16(T_low @ self._to8(t[:L])))

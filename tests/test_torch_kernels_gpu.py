@@ -517,3 +517,118 @@ def test_k7_k8_row_maps_negation_views_and_refusals_on_the_card(curve, route):
         with pytest.raises(ValueError):
             K(U[:, :1], V[:, :1], w)
     assert K.launches == n + 1
+
+
+def _k6_planes(fq, S, B, rng, limb=None):
+    """`_route_planes`, or with `limb` every limb but the top (0) set to it:
+    values below N whose products fill both 16-bit halves."""
+    if limb is None:
+        return _route_planes(fq, S, B, rng)
+    a = np.full((fq.L, S, B), limb, np.int32)
+    a[-1] = 0
+    return torch.from_numpy(a).to("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 17, 33, 4097, 16384, 65536])
+@pytest.mark.parametrize("curve,group,weights", STACKED_MAIN)
+def test_k6_equals_plain_version_at_the_main_path_shapes_on_the_card(curve, group, weights, B):
+    """K6 at every shape chip_smoke.py holds it at (ROUTE_SHAPES["k6"]),
+    word for word against its plain version (run on the card in lane
+    chunks), 32-bit columns in an int32 tensor, with the edge values in
+    lanes 0-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    comp, rows = (weights, (tuple(range(S)),) * 2 + ((0,) * S,)) if F.degree == 1 else F._flattened(weights, S)
+    rng = np.random.default_rng(47)
+    U, V = _route_planes(fq, F.degree * S, B, rng), _route_planes(fq, F.degree * S, B, rng)
+    K = stacked_product_for(fq.modulus).k6
+    n = K.launches
+    with torch.no_grad():
+        got = K(U, V, comp, rows)
+        torch.cuda.synchronize()
+        assert K.launches == n + 1 and got.dtype == torch.int32 and got.shape == (2 * fq.L, len(comp), B)
+        Ug, Vg = K.gather(U, V, rows)
+        want = torch.cat([K.plain_fn(Ug[..., lo:lo + 1024], Vg[..., lo:lo + 1024], comp)
+                          for lo in range(0, B, 1024)], dim=-1)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [33, 4097, 16384])
+@pytest.mark.parametrize("curve,group,weights", STACKED_MAIN)
+def test_mxu_route_equals_k5_at_the_main_path_shapes_on_the_card(curve, group, weights, B):
+    """The SNARK_SETUP_MXU_STACKED route (K6, then the float64 reduction)
+    gives K5's canonical products at every K6 shape of chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
+
+    F = curve_ops(curve, group).field
+    fq = F.fp
+    S = len(weights[0])
+    comp, rows = (weights, (tuple(range(S)),) * 2 + ((0,) * S,)) if F.degree == 1 else F._flattened(weights, S)
+    rng = np.random.default_rng(53)
+    U, V = _route_planes(fq, F.degree * S, B, rng), _route_planes(fq, F.degree * S, B, rng)
+    P = stacked_product_for(fq.modulus)
+    n = P.k6.launches
+    with torch.no_grad():
+        got = P.mxu(U, V, comp, rows)
+        want = P.k5(U, V, comp, rows)
+    torch.cuda.synchronize()
+    assert P.k6.launches == n + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve", ["bls12_377", "mnt4_753"])
+def test_k6_row_maps_negation_views_and_column_bound_on_the_card(curve):
+    """Row maps that repeat and skip rows, negated operands (0 stays 0), a
+    non-contiguous U, then weights at the largest sum the wrapper admits
+    on limbs of 0xFF01 (MNT4-753: the column bound's 682, columns above
+    2^31 that must read as unsigned): K6 equals its plain version on the
+    gathered operands, and the MXU route K5's product. Weights past the
+    bounds raise before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from snark_setup_tpu_torch.ops.cuda_routes import _check_columns, stacked_cols_plain, stacked_product_for
+
+    fq = curve_ops(curve, "g1").field.fp
+    P = stacked_product_for(fq.modulus)
+    K = P.k6
+    rng = np.random.default_rng(59)
+    B = 4097
+    wide = _route_planes(fq, 3, 2 * B, rng)
+    U = wide[..., ::2]  # lanes 0, 2, 4 of `wide`: 0, N - 1, ...
+    assert not U.is_contiguous()
+    V = _route_planes(fq, 3, B, rng)
+    rows = ((2, 0, 1, 2), (1, 1, 0, 2), (1, 0, 1, 0))
+    weights = ((1, 0, 1, 0), (0, 1, 0, 1))
+    n = K.launches
+    with torch.no_grad():
+        got = K(U, V, weights, rows)
+        torch.cuda.synchronize()
+        want = stacked_cols_plain(fq, *K.gather(U.contiguous(), V, rows), weights)
+        assert K.launches == n + 1 and torch.equal(got, want)
+        redc = fq.spec.mont_r_pow // fq.modulus  # the REDC bound's largest sum
+        top = min(redc, ((1 << 32) - 1) // (2 * fq.L << 16))
+        _check_columns(fq.L, ((top,),))
+        Uf, Vf = _k6_planes(fq, 3, B, rng, 0xFF01), _k6_planes(fq, 3, B, rng, 0xFF01)
+        bound = ((top - top // 2, top // 2, 0), (0, 1, top - 1))
+        frows = ((0, 1, 2), (2, 1, 0), (0, 1, 0))
+        got = K(Uf, Vf, bound, frows)
+        want = stacked_cols_plain(fq, *K.gather(Uf, Vf, frows), bound)
+        assert torch.equal(got, want)
+        if curve == "mnt4_753":
+            assert top == 682 and int(got.min()) < 0  # columns >= 2^31, as int32 words
+        assert torch.equal(P.mxu(Uf, Vf, bound, frows), P.k5(Uf, Vf, bound, frows))
+    n = K.launches
+    for w in (((redc + 1,),), ((((1 << 32) - 1) // (2 * fq.L << 16) + 1,),)):
+        with pytest.raises(ValueError):
+            K(U[:, :1], V[:, :1], w)
+    assert K.launches == n

@@ -80,14 +80,14 @@ def _operands(curve, S, B):
 @pytest.mark.parametrize("curve", CURVES)
 def test_cols_plain_equals_reference_cols(curve):
     """K6's plain version against PallasFieldMul.cols in interpret mode, as
-    integers (the reference's uint32 columns), and the wrapper on CPU
-    tensors runs it."""
+    integers (the reference's uint32 columns: 32-bit words read as
+    unsigned), and the wrapper on CPU tensors runs it."""
     fq, U, V, Ut, Vt = _operands(curve, 4, 40)
     weights = ((1, 1, 0, 0), (0, 0, 2, 1))
     want = np.asarray(pallas_mul_for(fq.modulus).cols(U, V, weights, interpret=True)).astype(np.int64)
     got = stacked_cols_plain(fq, Ut, Vt, weights)
-    assert got.dtype == torch.int64 and got.shape == (2 * fq.L, 2, 40)
-    assert (got.numpy() == want).all()
+    assert got.dtype == torch.int32 and got.shape == (2 * fq.L, 2, 40)
+    assert (got.numpy().view(np.uint32) == want).all()
     K = stacked_product_for(fq.modulus).k6
     n = (K.launches, K.plain_calls)
     assert torch.equal(K(Ut, Vt, weights), got)
@@ -108,6 +108,33 @@ def test_redc_cols_matmul_equals_reference_and_redc_cols(curve, nprod):
     assert torch.equal(got, fq.redc_cols(cols, nprod))
     with pytest.raises(ValueError, match="REDC bound"):
         fq.redc_cols_matmul(cols, fq.spec.mont_r_pow // fq.modulus + 1)
+
+
+def test_mxu_route_reads_columns_at_and_above_2_31_as_unsigned():
+    """K6's 32-bit columns at and above 2^31 (int32 words that read
+    negative) through the MXU route: MNT4-753 operands below N whose limbs
+    are all 0xFF01 below a zero top limb, weights whose largest sum is the
+    largest the column bound admits (682). The route's product equals
+    `redc_cols_matmul` on the same columns widened to int64, the JAX
+    package's `redc_cols_matmul` on them as uint32, and K5's product."""
+    fq = fp_ops(get_curve("mnt4_753").q)
+    top = ((1 << 32) - 1) // (2 * fq.L << 16)
+    assert top == 682
+    U = np.full((fq.L, 3, 6), 0xFF01, np.uint32)
+    U[-1] = 0
+    U[:, :, 1] = fq.from_int([1] * 3)  # 1 in Montgomery form, and lane 2 holds N - 1
+    U[:, :, 2] = fq.from_int([fq.modulus - 1] * 3)
+    Ut, Vt = planes_from_reference(U, "cpu"), planes_from_reference(U[:, ::-1].copy(), "cpu")
+    weights = ((341, 341, 0), (0, 1, top - 1))
+    P = stacked_product_for(fq.modulus)
+    cols = P.k6(Ut, Vt, weights)
+    assert cols.dtype == torch.int32 and int(cols.min()) < 0  # some column >= 2^31
+    got = P.mxu(Ut, Vt, weights)
+    wide = cols.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(got, fq.redc_cols_matmul(wide, top))
+    want = np.asarray(jax_fp_ops(fq.modulus).redc_cols_matmul(cols.numpy().view(np.uint32), top))
+    assert (planes_to_reference(got) == want).all()
+    assert torch.equal(got, P.k5(Ut, Vt, weights))
 
 
 @pytest.mark.parametrize("curve", CURVES)
