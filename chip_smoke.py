@@ -16,8 +16,9 @@ coordinator's side: `verify-and-transform-pok-and-correctness` and
 responses that must be rejected by the named check) and on a BLS12-377 one —
 and checks the results against the host oracle (Python-int curve arithmetic
 and the host codec). Then the stacked product's three opt-in routes: the
-BLS12-377 contribution again under SNARK_SETUP_KERNEL_V3 (kernel K7) and
-under SNARK_SETUP_MXU_STACKED (K6 + the matrix-product reduction), the
+BLS12-377 verify path's power-14 contribution again under
+SNARK_SETUP_KERNEL_V3 (kernel K7) and under SNARK_SETUP_MXU_STACKED (K6 +
+the matrix-product reduction), the
 MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
 elsewhere), each response byte-identical to the default route's from the
 same challenge and seed, and the batch scalar-mul under the routes at the
@@ -66,6 +67,17 @@ After the default paths it runs BLS12-377 contributions in the modes they
 do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (two
 chunks) and Marlin `contribute`, each checked against the host oracle and
 the hash chain, with K3 and K4 launched on each.
+Then phase 2 on BW6-761, from the `bw6_761 verify` path's verified power-16
+new challenge, through the port's phase-2 CLIs (`circuit_main`,
+`prepare_phase2_main`, `phase2_main`; `phase2_phase`): the SHA-256 preimage
+circuit at domain 2^16 (prepare, `new` in two chunks, two participants per
+chunk contributing and verifying, a bad response rejected by the L ratio
+check, `combine`; Lagrange-sum, h-query and hash-chain checks), then the
+prover gate on the x^2 circuit (a proof from the combined parameters
+verifies, one for a wrong input does not). K2, K3 and K4 of both BW6-761
+groups must launch there (their rows' `phase2_launches`); one JSON line per
+CLI step (wall and kernel seconds) and a breakdown line each for prepare and
+`new`.
 There is no single PyTorch call that computes any of these functions (a
 batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -73,9 +85,10 @@ batched multi-word Montgomery product has none), so `library_ms` is null. The la
 With `--sweep` it also times the ladder kernel at batch 2^12 .. 2^17 (how far
 a launch fills the card at the batch sizes a ceremony uses).
 `--power` sets the size of the BW6-761 and BLS12-377 contribute phases, the
-BLS12-377 route paths and the BW6-761 verify path (default 16); the MNT
+BW6-761 verify path and the phase-1 transcript of the phase-2 paths
+(default 16; below 16 the SHA-256 circuit's path is skipped); the MNT
 phases run at MNT_POWER (14), one full batch per G2 section, the BLS12-377
-verify path at BLS_VERIFY_POWER (14).
+verify path and the BLS12-377 route paths at BLS_VERIFY_POWER (14).
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -101,9 +114,13 @@ FMA_PER_S = 33.5e12  # the data sheet's 67 TFLOP/s fp32: K8's own floor (its f32
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
-BLS_VERIFY_POWER = 14  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds)
+BLS_VERIFY_POWER = 14  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds) and route paths
 MODES_POWER = 12  # the BLS12-377 beacon, chunked and Marlin contributions
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
+PHASE2_CHUNK = 1 << 15  # `phase2 new --chunk-size` on the SHA-256 circuit: 2 chunks of its 2^16 h query
+PHASE2_PATHS = ("bw6_761 phase2", "bw6_761 prover")
+PHASE2_KERNELS = tuple(f"{k}[bw6_761/{g}]" for g in ("g1", "g2")
+                       for k in ("glv_digits", "glv_ladder", "group_add"))  # must launch on the phase-2 paths
 CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))  # K2, K3, K4
 DIGITS_ONLY = (("bls12_377", "g2"),)  # K3 feeds the ladder over the group law there
 # the stacked-product kernel K5 at the main paths' shapes: (curve, group whose
@@ -1293,6 +1310,308 @@ def verify_phase(dev, curve: str, power: int, batch: int, workdir: str, rejectio
               "cause": f"{type(cause).__name__}: {cause}", "seconds": time.perf_counter() - t0})
 
 
+def contribution_hashes(spec, data: bytes, count: int) -> list[bytes]:
+    """Blake2b of each of the last `count` public keys of an MPC parameter
+    file (they end it, after a u32 big-endian count)."""
+    from snark_setup_tpu_torch.phase2.keypair import Phase2PublicKey
+
+    size = Phase2PublicKey.size(spec)
+    start = len(data) - count * size
+    if int.from_bytes(data[start - 4 : start], "big") != count:
+        raise AssertionError(f"expected {count} contributions")
+    return [hashlib.blake2b(data[start + i * size : start + (i + 1) * size], digest_size=64).digest()
+            for i in range(count)]
+
+
+@contextlib.contextmanager
+def stage_timer(stages: dict, targets: dict):
+    """Time every call of each (object, attribute) in `targets` (name ->
+    (object, attribute)), a synchronize on both sides, summing seconds into
+    stages[name]; nested calls count in both."""
+    import torch
+
+    saved = []
+    for name, (obj, attr) in targets.items():
+        fn = getattr(obj, attr)
+        saved.append((obj, attr, obj.__dict__.get(attr, None), attr in obj.__dict__))
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                stages[_name] = stages.get(_name, 0.0) + time.perf_counter() - t0
+
+        setattr(obj, attr, timed)
+    try:
+        yield stages
+    finally:
+        for obj, attr, old, had in reversed(saved):
+            if had:
+                setattr(obj, attr, old)
+            else:
+                delattr(obj, attr)
+
+
+def phase2_breakdown_targets() -> dict:
+    from snark_setup_tpu_torch.ntt.group_fft import GroupFFT
+    from snark_setup_tpu_torch.ops.codec import BatchPointCodec
+    from snark_setup_tpu_torch.ops.curve import CurveOps
+
+    return {
+        "table build (host twiddles, copy to the card; first use)": (GroupFFT, "tables"),
+        "reads: read_batch (host parse + to Montgomery [+ sqrt, checks])": (BatchPointCodec, "read_batch"),
+        "write-back: write_batch_start (normalize + from_mont + flags + copy)": (BatchPointCodec,
+                                                                                 "write_batch_start"),
+        "of write-back: normalize (inversion tree + Fermat inversion)": (CurveOps, "normalize"),
+        "host conversion: write_batch_finish (byte packing)": (BatchPointCodec, "write_batch_finish"),
+        "host conversion: from_affine_host": (CurveOps, "from_affine_host"),
+        "host conversion: to_affine_host (host Z inversion)": (CurveOps, "to_affine_host"),
+    }
+
+
+def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part: str) -> None:
+    """The Groth16 phase-2 ceremony on BW6-761 through the port's CLIs, from
+    the verified power-`power` phase-1 challenge that the `bw6_761 verify`
+    path left in `bw6_dir` (new_challenge1), in the flow of
+    scripts/phase1_chunked_prepare_phase2.sh and scripts/phase2_chunked.sh.
+
+    part "sha256": the SHA-256 preimage circuit (`circuit_main create
+    --complex`: 43163 constraints, domain 2^16); prepare_phase2 at
+    --phase2-size 2^16, `new` in 2 chunks, per chunk two participants
+    contribute and verify, a response with one L point replaced by another
+    subgroup point is rejected by the L ratio check, `combine`. Checks: each
+    .hash file is the Blake2b of its file; in the prepared transcript the
+    Lagrange sums (one device sum_reduce each, compared on the host):
+    sum coeffs_g1 = G1, sum coeffs_g2 = G2, sum alpha_coeffs_g1 = alpha G1,
+    sum beta_coeffs_g1 = beta G1, sum omega^j coeffs_g1[j] = tau G1; h_g1[i]
+    = tau^(i+m) G1 - tau^i G1 at a few i on the host; the combined file's
+    contributions are the participants'.
+
+    part "prover": the x^2 circuit, prepared from the same transcript at its
+    domain, new -> contribute -> verify -> combine -> `circuit_main test`
+    on combined.params; then a proof from those params verifies for the
+    true public input and not for a wrong one (host pairings).
+
+    One JSON line per CLI step (wall seconds, kernel seconds from each
+    launch's events), a breakdown line for prepare and for new."""
+    import torch
+
+    from snark_setup_tpu_torch.cli import circuit_main, phase2_main, prepare_phase2_main
+    from snark_setup_tpu_torch.curves.constants import get_curve
+    from snark_setup_tpu_torch.curves.host import g1_curve, g2_curve
+    from snark_setup_tpu_torch.ntt.domain import Radix2Domain
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.phase1.buffers import split
+    from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+    from snark_setup_tpu_torch.phase2 import groth16
+    from snark_setup_tpu_torch.phase2.parameters import ProvingKey
+    from snark_setup_tpu_torch.phase2.r1cs import TestCircuit
+    from snark_setup_tpu_torch.phase2.vecio import Cursor, skip_vec
+    from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
+    from snark_setup_tpu_torch.transcript.hashing import derive_rng_from_seed
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
+    from snark_setup_tpu_torch.utils.errors import InvalidRatioError
+
+    spec = get_curve("bw6_761")
+    h1, h2 = g1_codec(spec), g2_codec(spec)
+    blake = lambda data: hashlib.blake2b(data, digest_size=64).digest()
+    phase1 = os.path.join(bw6_dir, "new_challenge1")
+    work = os.path.join(bw6_dir, f"phase2_{part}")
+    os.makedirs(work)
+    path = lambda name: os.path.join(work, name)
+
+    def read(name) -> bytes:
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    def step(name, fn, *args, stages=None):
+        """One CLI step in `work`: wall seconds and kernel seconds."""
+        for w in wrappers.values():
+            w.events = []
+        cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            with stage_timer(stages if stages is not None else {},
+                             phase2_breakdown_targets() if stages is not None else {}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = fn(list(args))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        kernel_ms = {k: sum(s.elapsed_time(e) for s, e in w.events) for k, w in wrappers.items()}
+        for w in wrappers.values():
+            w.events = None
+        if rc not in (0, None):
+            raise AssertionError(f"phase2 {part}: {name} exited {rc}")
+        emit({"phase": "phase2", "part": part, "step": name, "wall_seconds": secs,
+              "kernel_ms": {k: v for k, v in kernel_ms.items() if v},
+              "kernel_seconds_total": sum(kernel_ms.values()) / 1e3})
+        return kernel_ms, secs
+
+    p2 = lambda argv: phase2_main.execute(phase2_main.build_parser().parse_args(argv))
+    for tag in ("1", "2"):
+        with open(path(f"seed{tag}"), "w") as f:
+            f.write(hashlib.sha256(f"chip_smoke phase2 seed {tag}".encode()).hexdigest())
+
+    # -- circuit, prepare ---------------------------------------------------
+    complex_ = part == "sha256"
+    step("circuit create", circuit_main.main, "create", "--curve-kind", "bw6", *(["--complex"] if complex_ else []))
+    from snark_setup_tpu_torch.phase2.load_circuit import Matrices
+
+    matrices = Matrices.read(spec, read("testcircuit_bw6"))
+    size = max(matrices.num_constraints, matrices.num_witness_variables + matrices.num_instance_variables)
+    m = Radix2Domain("bw6_761", size).size
+    if m > 1 << power:
+        raise AssertionError(f"phase2 {part}: domain {m} needs a phase-1 power of at least {m.bit_length()}")
+    prep_stages = {}
+    prep_kernels, prep_secs = step(
+        "prepare_phase2", prepare_phase2_main.main, "--curve-kind", "bw6", "--power", str(power),
+        "--batch-size", str(batch), "--phase2-size", str(m), "--phase2-fname", "phase2_transcript",
+        "--response-fname", phase1, "--device", dev.type, stages=prep_stages)
+    emit({"phase": "breakdown", "config": f"bw6_761 prepare_phase2, domain {m}", "wall_seconds": prep_secs,
+          "seconds": prep_stages | {f"kernel {k}": v / 1e3 for k, v in prep_kernels.items() if v}})
+
+    # -- the prepared transcript against the phase-1 one --------------------
+    p1 = Phase1Parameters.new_full("bw6_761", ProvingSystem.GROTH16, power, batch)
+    s1 = split(p1, UseCompression.NO)
+    with open(phase1, "rb") as f:
+        ch = f.read()
+    pt = read("phase2_transcript")
+    g1size, g2size = h1.size(UseCompression.NO), h2.size(UseCompression.NO)
+    off = {"coeffs_g1": 2 * g1size + g2size}
+    off["coeffs_g2"] = off["coeffs_g1"] + m * g1size
+    off["alpha_coeffs_g1"] = off["coeffs_g2"] + m * g2size
+    off["beta_coeffs_g1"] = off["alpha_coeffs_g1"] + m * g1size
+    off["h_g1"] = off["beta_coeffs_g1"] + m * g1size
+    if len(pt) != off["h_g1"] + (m - 1) * g1size:
+        raise AssertionError(f"phase2 {part}: transcript length {len(pt)}")
+    one = lambda sec, i, codec: codec.deserialize(bytes(s1[sec].slice_of(ch, i, i + 1)), UseCompression.NO,
+                                                   CheckForCorrectness.NO)
+    G1, G2 = g1_curve(spec).generator, g2_curve(spec).generator
+    expect = {"coeffs_g1": G1, "coeffs_g2": G2, "alpha_coeffs_g1": one("alpha_g1", 0, h1),
+              "beta_coeffs_g1": one("beta_g1", 0, h1)}
+    sums = {}
+    for name, want in expect.items():
+        codec = batch_codec("bw6_761", "g2" if name == "coeffs_g2" else "g1", dev)
+        esize = g2size if name == "coeffs_g2" else g1size
+        pts = codec.read_batch(pt[off[name] : off[name] + m * esize], UseCompression.NO)
+        got = codec.ops.to_affine_host(codec.ops.sum_reduce(pts))[0]
+        if got != want:
+            raise AssertionError(f"phase2 {part}: the Lagrange sum of {name} is wrong")
+        sums[name] = True
+        if name == "coeffs_g1":
+            dom = Radix2Domain("bw6_761", m)
+            from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
+
+            powers = dom.elements()
+            sc = codec.ops.fr.tensor(ints_to_limbs_batch(powers, codec.ops.fr.L).T, dev)
+            got = codec.ops.to_affine_host(codec.ops.sum_reduce(codec.ops.scalar_mul(pts, sc)))[0]
+            if got != one("tau_g1", 1, h1):
+                raise AssertionError(f"phase2 {part}: sum omega^j coeffs_g1[j] != tau G1")
+            sums["omega_weighted_coeffs_g1"] = True
+    hc = g1_curve(spec)
+    h_checked = []
+    for i in sorted({0, 1, m // 2, m - 2}):
+        h = h1.deserialize(pt[off["h_g1"] + i * g1size : off["h_g1"] + (i + 1) * g1size], UseCompression.NO,
+                           CheckForCorrectness.NO)
+        if h != hc.add(one("tau_g1", i + m, h1), hc.neg(one("tau_g1", i, h1))):
+            raise AssertionError(f"phase2 {part}: h_g1[{i}] != tau^(i+m) G1 - tau^i G1")
+        h_checked.append(i)
+
+    # -- new, contributions, verification, combine --------------------------
+    chunk = PHASE2_CHUNK if complex_ else m
+    common = ["--curve-kind", "bw6", "--batch-size", str(batch), "--contribution-mode", "chunked",
+              "--chunk-size", str(chunk), "--device", dev.type]
+    new_stages = {}
+    new_kernels, new_secs = step(
+        "new", p2, *common, "new", "--challenge-fname", "challenge", "--challenge-hash-fname",
+        "challenge.verified.hash", "--challenge-list-fname", "new_challenge_list", "--phase1-fname",
+        "phase2_transcript", "--circuit-fname", "testcircuit_bw6", stages=new_stages)
+    emit({"phase": "breakdown", "config": f"bw6_761 phase2 new, domain {m}, chunk {chunk}",
+          "wall_seconds": new_secs,
+          "seconds": new_stages | {f"kernel {k}": v / 1e3 for k, v in new_kernels.items() if v}})
+    hash_files = {"challenge.verified.hash": "challenge.full"}
+    chunks = read("new_challenge_list").decode().split()
+    responses = []
+    for i, name in enumerate(chunks):
+        first, second = ("1", "2") if i % 2 == 0 else ("2", "1")
+        for who, chal, resp, ver in ((first, name, f"response_{i}", f"verified_{i}"),
+                                     (second, f"verified_{i}", f"new_response_{i}", f"verified2_{i}")):
+            step(f"contribute chunk {i} participant {who}", p2, *common, "--chunk-index", str(i), "--seed",
+                 f"seed{who}", "contribute", "--challenge-fname", os.path.basename(chal),
+                 "--challenge-hash-fname", f"{chal}.hash", "--response-fname", resp,
+                 "--response-hash-fname", f"{resp}.hash")
+            step(f"verify chunk {i} participant {who}", p2, *common, "--chunk-index", str(i), "verify",
+                 "--challenge-fname", chal, "--challenge-hash-fname", f"{chal}.verified.hash",
+                 "--response-fname", resp, "--response-hash-fname", f"{resp}.verified.hash",
+                 "--new-challenge-fname", ver, "--new-challenge-hash-fname", f"{ver}.verified.hash")
+            hash_files |= {f"{chal}.hash": chal, f"{resp}.hash": resp, f"{chal}.verified.hash": chal,
+                           f"{resp}.verified.hash": resp, f"{ver}.verified.hash": ver}
+        responses.append(f"new_response_{i}")
+        if i == 0 and complex_:
+            # one L point replaced by another subgroup point: the L ratio
+            # check must reject the response
+            bad = bytearray(read("response_0"))
+            cur = Cursor(bad)
+            # the layout: vk (alpha_g1, beta_g2, gamma_g2, delta_g2, gamma_abc_g1),
+            # beta_g1, delta_g1, a, b_g1, b_g2, h, l
+            cur.skip(h1.size(UseCompression.YES) + 3 * h2.size(UseCompression.YES))
+            skip_vec(spec, "g1", cur, UseCompression.YES)
+            cur.skip(2 * h1.size(UseCompression.YES))
+            for g in ("g1", "g1", "g2", "g1"):
+                skip_vec(spec, g, cur, UseCompression.YES)
+            n_l = cur.u64()
+            j = min(100, n_l - 1)
+            at = cur.pos + j * h1.size(UseCompression.YES)
+            bad[at : at + h1.size(UseCompression.YES)] = h1.serialize(hc.mul(G1, 12345), UseCompression.YES)
+            with open(path("bad_response_0"), "wb") as f:
+                f.write(bad)
+            t0 = time.perf_counter()
+            try:
+                step("verify bad response (one L point replaced)", p2, *common, "--chunk-index", "0", "verify",
+                     "--challenge-fname", "challenge.0", "--response-fname", "bad_response_0",
+                     "--new-challenge-fname", "bad_verified_0", "--challenge-hash-fname", "bad.c.hash",
+                     "--response-hash-fname", "bad.r.hash", "--new-challenge-hash-fname", "bad.n.hash")
+            except InvalidRatioError as e:
+                if "L_query ratio check failed" not in str(e):
+                    raise AssertionError(f"phase2: bad response rejected by another check: {e}") from e
+                emit({"phase": "phase2", "part": part, "rejection": "L point replaced", "rejected": True,
+                      "cause": f"{type(e).__name__}: {e}", "seconds": time.perf_counter() - t0})
+            else:
+                raise AssertionError("phase2: the bad response was accepted")
+    with open(path("response_list"), "w") as f:
+        f.write("\n".join(responses) + "\n")
+    step("combine", p2, *common, "combine", "--response-list-fname", "response_list", "--initial-query-fname",
+         "challenge.query", "--initial-full-fname", "challenge.full", "--combined-fname", "combined")
+    for hfile, target in hash_files.items():
+        if read(hfile) != blake(read(target)):
+            raise AssertionError(f"phase2 {part}: {hfile} is not the Blake2b of {target}")
+    combined = read("combined")
+    if contribution_hashes(spec, combined, 2) != contribution_hashes(spec, read("new_response_0"), 2):
+        raise AssertionError(f"phase2 {part}: the combined contributions are not the participants'")
+
+    result = {"phase": "phase2", "part": part, "domain": m, "constraints": matrices.num_constraints,
+              "variables": matrices.num_instance_variables + matrices.num_witness_variables,
+              "nnz": [matrices.a_num_non_zero, matrices.b_num_non_zero, matrices.c_num_non_zero],
+              "chunks": len(chunks), "lagrange_sums_ok": sums, "h_checked": h_checked,
+              "hash_files_ok": len(hash_files), "combined_contributions_ok": True}
+    if not complex_:
+        step("circuit test (prove + verify)", circuit_main.main, "test", "--curve-kind", "bw6",
+             "--proving-key-path", "combined.params", "--device", dev.type)
+        pk = ProvingKey.read(spec, Cursor(read("combined.params")), UseCompression.NO, CheckForCorrectness.NO,
+                             device=dev)
+        proof = groth16.prove(spec, pk, TestCircuit(5), derive_rng_from_seed(b"\x09" * 32), dev)
+        if not groth16.verify(spec, pk.vk, proof, [25]) or groth16.verify(spec, pk.vk, proof, [26]):
+            raise AssertionError("phase2 prover: the proof is not accepted for 25 and rejected for 26")
+        result |= {"proof_verifies": True, "wrong_input_rejected": True}
+    emit(result)
+
+
 def verify_breakdown_phase(dev, power: int, batch: int, workdir: str) -> None:
     """One batch of the BW6-761 verify loop (tau_g1[0 : batch + 1] of the
     path's response), stage by stage, each ended with a synchronize."""
@@ -1509,8 +1828,8 @@ def sweep_phase(dev) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--power", type=int, default=16,
-                    help="log2 size of the BW6-761 and BLS12-377 contribute phases, the BLS12-377 "
-                         "route paths and the BW6-761 verify path (>= 14)")
+                    help="log2 size of the BW6-761 and BLS12-377 contribute phases, the BW6-761 "
+                         "verify path and the phase-2 paths' phase-1 transcript (>= 14)")
     ap.add_argument("--sweep", action="store_true",
                     help="also time the ladder kernel at batch 2^12 .. 2^17")
     args = ap.parse_args()
@@ -1548,6 +1867,10 @@ def main() -> int:
                 + compare_group_ops(dev, BATCH))
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
         wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
+        # the kernels of the phase-2 paths (both groups of BW6-761 on Fq):
+        # their kernel seconds are summed per CLI step
+        phase2_wrappers = {r["_label"]: r["_wrapper"] for r in rows
+                           if r["_label"].startswith(("glv_", "group_")) and "bw6_761" in r["_label"]}
 
         def labelled(curve):
             """The wrappers whose kernels a contribution on `curve` launches."""
@@ -1558,7 +1881,7 @@ def main() -> int:
             """The wrappers of a verify path's rows (and of the `also` rows)."""
             return {r["_label"]: r["_wrapper"] for r in rows if r["_path"] in (path, *also)}
 
-        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "bls12_377 p16", "mnt4_753")}
+        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "mnt4_753")}
         for d in dirs.values():
             os.makedirs(d)
         bw6_dir, bls_dir = dirs["bw6_761"], dirs["bls12_377"]
@@ -1567,8 +1890,7 @@ def main() -> int:
             ("bw6_761", lambda: (scalar_mul_phase(dev, BATCH),
                                  contribute_phase(dev, "bw6_761", args.power, BATCH, labelled("bw6_761"),
                                                   contributions=2, workdir=bw6_dir))),
-            ("bls12_377", lambda: contribute_phase(dev, "bls12_377", args.power, BATCH,
-                                                   labelled("bls12_377"), workdir=dirs["bls12_377 p16"])),
+            ("bls12_377", lambda: contribute_phase(dev, "bls12_377", args.power, BATCH, labelled("bls12_377"))),
             ("mnt4_753", lambda: contribute_phase(dev, "mnt4_753", MNT_POWER, BATCH,
                                                   labelled("mnt4_753"), picks=2, workdir=dirs["mnt4_753"])),
             ("mnt6_753", lambda: contribute_phase(dev, "mnt6_753", MNT_POWER, BATCH,
@@ -1582,10 +1904,12 @@ def main() -> int:
                              on_path("bls12_377 verify", "bls12_377")))),
             # the opt-in routes: the default paths' challenges and seeds under
             # each switch, the response byte-identical to the default route's
-            ("bls12_377 v3", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k7"][0],
-                                                 dirs["bls12_377 p16"], on_path("bls12_377 v3"))),
-            ("bls12_377 mxu", lambda: route_phase(dev, "bls12_377", args.power, BATCH, ROUTES["k6"][0],
-                                                  dirs["bls12_377 p16"], on_path("bls12_377 mxu"),
+            # (BLS12-377 at BLS_VERIFY_POWER, on the verify path's
+            # contribution: the phase-2 paths need the time)
+            ("bls12_377 v3", lambda: route_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, ROUTES["k7"][0],
+                                                 bls_dir, on_path("bls12_377 v3"))),
+            ("bls12_377 mxu", lambda: route_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, ROUTES["k6"][0],
+                                                  bls_dir, on_path("bls12_377 mxu"),
                                                   mxu_reducers(("bls12_377",)))),
             ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
                                                 dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
@@ -1595,10 +1919,18 @@ def main() -> int:
             ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH)),
             ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH)),
             ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH)),
+            # phase 2 on BW6-761 from the verify path's new challenge: the
+            # SHA-256 circuit's ceremony, then the prover gate
+            ("bw6_761 phase2", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "sha256")),
+            ("bw6_761 prover", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "prover")),
         )
+        if args.power < 16:  # the SHA-256 circuit's domain is 2^16
+            paths = tuple(p for p in paths if p[0] != "bw6_761 phase2")
+            emit({"phase": "phase2", "part": "sha256", "skipped": "its domain 2^16 needs --power 16"})
         # kernels that must launch on a path besides the rows it owns
         also = {p: ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "glv_digits[bls12_377/g2]")
                 for p in ("bls12_377 beacon", "bls12_377 chunked", "bls12_377 marlin")}
+        also |= {p: PHASE2_KERNELS + ("group_dbl[bw6_761/g1]",) for p in PHASE2_PATHS}
         for curve, run in paths:
             for w in wrappers:
                 w.launches = 0
@@ -1622,6 +1954,10 @@ def main() -> int:
             for label, n in launched.items():
                 if n <= 0:
                     raise AssertionError(f"{label} was never launched on the {curve} path")
+            if curve in PHASE2_PATHS:
+                for r in rows:
+                    if r["_wrapper"] in phase2_wrappers.values():
+                        r.setdefault("phase2_launches", {})[curve] = r["_wrapper"].launches
             emit({"phase": "path", "curve": curve, "seconds": time.perf_counter() - t0,
                   "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched})
         ladder_widths_phase(dev, rows)

@@ -177,24 +177,26 @@ class CurveOps:
         )
 
     def to_affine_host(self, p: PointVec) -> list[AffinePoint]:
-        """Device batch -> host affine points. The Montgomery planes are
-        copied as they are and Z is inverted with host field arithmetic:
-        the output is host points either way, and the device's Fermat
-        inversion is ~1100 dependent products of the plain field layer."""
-        q = self.spec.q
-        r_inv = pow(self.fq.spec.mont_r, -1, q)
+        """Device batch -> host affine points. The coordinates leave
+        Montgomery form on the device (one product each) and Z is inverted
+        with host field arithmetic: the output is host points either way,
+        and the device's Fermat inversion is ~1100 dependent products of
+        the plain field layer. A Z of one (every decoded point has it) needs
+        no inversion."""
+        one = (1,) + (0,) * (self.field.degree - 1)
 
-        def host(arr):  # Montgomery planes -> host field elements
-            vals = [tuple(c * r_inv % q for c in cs) for cs in self._std_to_coeffs(arr)]
-            return [self.spec.fp(v[0]) if self.field.degree == 1 else self.spec.g2_field(v) for v in vals]
+        def host(v):  # standard-form coefficients -> a host field element
+            return self.spec.fp(v[0]) if self.field.degree == 1 else self.spec.g2_field(v)
 
         out = []
-        for x, y, z in zip(host(p["x"]), host(p["y"]), host(p["z"])):
-            if z.is_zero():
+        for x, y, z in zip(*(self._std_to_coeffs(self.fq.from_mont(p[k])) for k in ("x", "y", "z"))):
+            if z == one:
+                out.append(AffinePoint(host(x), host(y)))
+            elif not any(z):
                 out.append(INFINITY)
             else:
-                z_inv = z.inverse()
-                out.append(AffinePoint(x * z_inv, y * z_inv))
+                z_inv = host(z).inverse()
+                out.append(AffinePoint(host(x) * z_inv, host(y) * z_inv))
         return out
 
     def _std_to_coeffs(self, arr: torch.Tensor) -> list[tuple]:

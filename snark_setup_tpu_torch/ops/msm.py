@@ -1,16 +1,18 @@
-"""Multi-scalar multiplication over PUBLIC (verifier-side) scalars.
+"""Multi-scalar multiplication: over PUBLIC (verifier-side) scalars, and the
+constant-time MSM for SECRET ones.
 
-One chooser for phase-1's random-linear-combination power-pair checks:
+One chooser for the random-linear-combination ratio checks of phase 1 and
+phase 2 (`msm_public`):
 Pippenger buckets (ops/pippenger.py) from PIPPENGER_MIN points up, the raw
 windowed ladder + tree reduction below. Both run the group law of
 ops/curve.py — K2 on Fq coordinates with a = 0, K5 rounds elsewhere — on the
 card, and their plain versions on CPU tensors.
 
-Secret-scalar paths (contribution, key material) must NOT come through
-here: they use the constant-time GLV ladder.
+Secret-scalar paths (contribution, key material, the prover's witness) must
+NOT take `msm_public`: they use `msm_secret`, the constant-time GLV ladder.
 
-Replaces the reference's ops/msm.py (msm_public, RLC scalar generation);
-its host-bigint fallbacks for XLA:CPU have no counterpart here.
+Replaces the reference's ops/msm.py (msm_public, msm_secret, RLC scalar
+generation); its host-bigint fallbacks for XLA:CPU have no counterpart here.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..fields.limb import LIMB_BITS, ints_to_limbs_batch
 from .curve import CurveOps, PointVec
+from .lanes import lanewise
 
 RLC_BITS = 128
 """Width of random-linear-combination scalars: the ~2^-128 collision bound
@@ -65,3 +68,18 @@ def msm_public(ops: CurveOps, pts: PointVec, scalars_raw: np.ndarray, nbits: int
     dev = pts["x"].device
     scalars = torch.from_numpy(np.asarray(scalars_raw).astype(np.int32)).to(dev)
     return ops.sum_reduce(ops.scalar_mul_windowed(pts, scalars, nbits=nbits))
+
+
+def msm_secret(ops: CurveOps, pts: PointVec, scalars_raw) -> PointVec:
+    """sum_i k_i P_i for SECRET scalars (prover witness, key material): the
+    GLV scalar-mul (K3 + K4 on the card for Fq coordinates), then the tree
+    reduction (K2). No host digit recoding, no data-dependent bucket gather,
+    no skipping of zero scalars: every scalar does the same work, so the
+    device's time and memory traffic do not depend on the witness. The
+    bases must lie in the prime-order subgroup (the GLV contract).
+    `scalars_raw`: (Ls, B) raw limbs, host numpy or a tensor; returns a
+    1-point PointVec on the points' device."""
+    dev = pts["x"].device
+    if not isinstance(scalars_raw, torch.Tensor):
+        scalars_raw = ops.fr.tensor(np.asarray(scalars_raw), dev)
+    return ops.sum_reduce(lanewise(ops.scalar_mul, pts, scalars_raw.to(dev)))

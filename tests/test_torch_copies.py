@@ -327,3 +327,48 @@ def test_verification_entry_points_raise_without_a_card():
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("rel", ["ntt/domain.py", "phase2/r1cs.py", "phase2/sha256_circuit.py",
+                                 "phase2/load_circuit.py", "phase2/keypair.py"])
+def test_phase2_host_copies_are_byte_equal(rel):
+    """The host-exact phase-2 modules are copies, byte for byte."""
+    with open(os.path.join(REPO, "snark_setup_tpu", rel), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(REPO, "snark_setup_tpu_torch", rel), "rb") as f:
+        assert f.read() == ref
+
+
+PHASE2_MODULES = [
+    "ntt", "ntt.domain", "ntt.group_fft", "ops.lanes", "ops.msm", "phase2", "phase2.vecio", "phase2.lagrange",
+    "phase2.polynomial", "phase2.parameters", "phase2.keypair", "phase2.r1cs", "phase2.load_circuit",
+    "phase2.sha256_circuit", "phase2.groth16", "cli.phase2_cmds", "cli.phase2_main", "cli.prepare_phase2_main",
+    "cli.circuit_main",
+]
+
+
+def test_phase2_modules_import_without_jax():
+    """Every phase-2 module of the port is among the files the import check
+    above reads, and imports in an interpreter where `jax` and the JAX
+    package cannot be imported."""
+    import subprocess
+    import sys
+
+    files = set(_port_sources())
+    for mod in PHASE2_MODULES:
+        rel = mod.replace(".", os.sep)
+        assert (os.path.join(REPO, "snark_setup_tpu_torch", rel + ".py") in files
+                or os.path.join(REPO, "snark_setup_tpu_torch", rel, "__init__.py") in files), mod
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['snark_setup_tpu'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "import importlib\n"
+        f"for m in {PHASE2_MODULES!r}:\n"
+        "    importlib.import_module('snark_setup_tpu_torch.' + m)\n"
+        "assert not [m for m, v in sys.modules.items() if v is not None\n"
+        "            and (m in ('jax', 'snark_setup_tpu') or m.startswith(('jax.', 'snark_setup_tpu.')))]\n"
+    )
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
