@@ -16,7 +16,7 @@ coordinator's side: `verify-and-transform-pok-and-correctness` and
 responses that must be rejected by the named check) and on a BLS12-377 one —
 and checks the results against the host oracle (Python-int curve arithmetic
 and the host codec). Then the stacked product's three opt-in routes: the
-BLS12-377 verify path's power-14 contribution again under
+BLS12-377 verify path's power-13 contribution again under
 SNARK_SETUP_KERNEL_V3 (kernel K7) and under SNARK_SETUP_MXU_STACKED (K6 +
 the matrix-product reduction), the
 MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
@@ -64,9 +64,15 @@ each launch the same way (`call_ms` for the digits) and carry
 `geometry`, the ladder's rows `team` and `lanes_ms`: its time at every
 width the main path launched and at 1 lane.
 After the default paths it runs BLS12-377 contributions in the modes they
-do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (two
-chunks) and Marlin `contribute`, each checked against the host oracle and
-the hash chain, with K3 and K4 launched on each.
+do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (every
+chunk) and Marlin `contribute`, each checked against the host oracle and
+the hash chain, with K3 and K4 launched on each; then their coordinator's
+side: chunked verification (two chunks), `combine` (Phase1.aggregation),
+`verify-and-transform-ratios` on the combined accumulator
+(Phase1.aggregate_verification), `split` of the beacon's full response and
+its decompression (Phase1.decompress) and Marlin verification, each
+file checked against the host codec's decoding of its source and the hash
+chain.
 Then phase 2 on BW6-761, from the `bw6_761 verify` path's verified power-16
 new challenge, through the port's phase-2 CLIs (`circuit_main`,
 `prepare_phase2_main`, `phase2_main`; `phase2_phase`): the SHA-256 preimage
@@ -77,7 +83,13 @@ prover gate on the x^2 circuit (a proof from the combined parameters
 verifies, one for a wrong input does not). K2, K3 and K4 of both BW6-761
 groups must launch there (their rows' `phase2_launches`); one JSON line per
 CLI step (wall and kernel seconds) and a breakdown line each for prepare and
-`new`.
+`new`. Then the streaming phase 2 (`phase2/chunked.py`: contribute in place
+and verify over raw buffers, on the SHA-256 path's chunk 0 and combined
+file; K3 + K4 and K2 on BW6-761 G1, one line a step with a host breakdown),
+the device mesh (`shard/mesh.py`) over two entries of the one card (the
+sharded step and inverse FFT equal to the single-device results; no time is
+claimed) and the portable contributor (`portable/`, host Python) on the
+prover gate's challenge, its response verified on the card.
 There is no single PyTorch call that computes any of these functions (a
 batched multi-word Montgomery product has none), so `library_ms` is null. The last line is
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -87,8 +99,8 @@ a launch fills the card at the batch sizes a ceremony uses).
 `--power` sets the size of the BW6-761 and BLS12-377 contribute phases, the
 BW6-761 verify path and the phase-1 transcript of the phase-2 paths
 (default 16; below 16 the SHA-256 circuit's path is skipped); the MNT
-phases run at MNT_POWER (14), one full batch per G2 section, the BLS12-377
-verify path and the BLS12-377 route paths at BLS_VERIFY_POWER (14).
+phases run at MNT_POWER (13), half a batch per G2 section, the BLS12-377
+verify path and the BLS12-377 route paths at BLS_VERIFY_POWER (13).
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -113,12 +125,17 @@ INT8_MAC_PER_S = 989.5e12  # the data sheet's 1979 dense int8 TOP/s on the tenso
 FMA_PER_S = 33.5e12  # the data sheet's 67 TFLOP/s fp32: K8's own floor (its f32 FMAs)
 SEED = 20240607
 BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
-MNT_POWER = 14  # MNT4-753 / MNT6-753 contributions: one full batch per G2 section
-BLS_VERIFY_POWER = 14  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds) and route paths
+# MNT_POWER and BLS_VERIFY_POWER were 14 before the streaming phase 2, the
+# mesh, the portable contributor and the modes' coordinator's side joined the
+# script: cut to 13 to keep it near 80 % of its time limit
+MNT_POWER = 13  # MNT4-753 / MNT6-753 contributions: half a batch per G2 section
+BLS_VERIFY_POWER = 13  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds) and route paths
 MODES_POWER = 12  # the BLS12-377 beacon, chunked and Marlin contributions
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
 PHASE2_CHUNK = 1 << 15  # `phase2 new --chunk-size` on the SHA-256 circuit: 2 chunks of its 2^16 h query
 PHASE2_PATHS = ("bw6_761 phase2", "bw6_761 prover")
+CHUNKED_PATH = "bw6_761 phase2 chunked"  # the streaming phase 2 on the SHA-256 path's files
+MESH_IFFT_POINTS = 1 << 14  # the sharded inverse FFT of the mesh path (BW6-761 G1)
 PHASE2_KERNELS = tuple(f"{k}[bw6_761/{g}]" for g in ("g1", "g2")
                        for k in ("glv_digits", "glv_ladder", "group_add"))  # must launch on the phase-2 paths
 CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))  # K2, K3, K4
@@ -1081,69 +1098,205 @@ def check_marlin_response(params, key, challenge: bytes, response: bytes, rng, l
     return checked
 
 
-def modes_phase(dev, mode: str, power: int, batch: int) -> None:
-    """`new` + one contribution through the port's CLI on BLS12-377 (G1 on
+def reencoded_checks(label: str, pairs, rng, picks: int = 6) -> int:
+    """Host-oracle check that points were carried over unchanged: for each
+    (name, group, source buffer, source sections, source compression,
+    target buffer, target sections, target compression, offset), at the
+    first, the last and `picks` random indices i of the target section, the
+    target's point i is the source's point offset + i decoded and re-encoded
+    by the host codec."""
+    from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness
+
+    checked = 0
+    for name, spec, group, src, s_src, c_src, dst, s_dst, c_dst, off in pairs:
+        codec = g1_codec(spec) if group == "g1" else g2_codec(spec)
+        n = s_dst[name].num_elements
+        if n == 0:
+            continue
+        for i in sorted({0, n - 1, *(int(i) for i in rng.integers(0, n, picks))}):
+            p = codec.deserialize(bytes(s_src[name].slice_of(src, off + i, off + i + 1)), c_src,
+                                  CheckForCorrectness.NO)
+            if bytes(s_dst[name].slice_of(dst, i, i + 1)) != codec.serialize(p, c_dst):
+                raise AssertionError(f"{label}: {name}[{i}] is not the source's point {off + i}")
+            checked += 1
+    return checked
+
+
+MODE_SECTIONS = (("tau_g1", "g1"), ("tau_g2", "g2"), ("alpha_g1", "g1"), ("beta_g1", "g1"), ("beta_g2", "g2"))
+
+
+def modes_phase(dev, mode: str, power: int, batch: int, workdir: str) -> None:
+    """`new` + contributions through the port's CLI on BLS12-377 (G1 on
     K3 + K4, G2 on K3 + the group law over K5) in a mode the main paths do
-    not take: `beacon` (the key from the beacon hash), chunked `contribute`
-    (chunk 1, with every section, and chunk 3, tau_g1 only and ragged, of
-    2^(power - 1)-element chunks) or Marlin `contribute`. Every response is
-    checked against the host oracle and the hash chain."""
+    not take, then the coordinator's side of that mode:
+
+    - `beacon` (the key from the beacon hash); its full compressed response
+      stays in `workdir` for the chunked mode's `split`;
+    - chunked: `contribute` to every chunk of 2^(power - 1) G1 powers (chunk
+      0 and 1 with every section, the last tau_g1 only and ragged), chunked
+      `verify-and-transform-pok-and-correctness` of chunks 1 and the last,
+      `combine` (Phase1.aggregation) of all responses, `verify-and-
+      transform-ratios` (Phase1.aggregate_verification) on the combined
+      accumulator, `split` of the beacon's full response into chunks, and
+      Phase1.decompress of that response: each split chunk equals its slice
+      of the decompressed accumulator;
+    - Marlin: `contribute` and `verify-and-transform-pok-and-correctness`
+      (not `verify-and-transform-ratios`: its Marlin branch is 4 host ratio
+      checks a degree bound, 48 at power 12, ~74 s on the host; the chunked
+      mode's ratios run the device part of the same function).
+
+    Every response is checked against the host oracle and the hash chain;
+    every new challenge, combined, split and decompressed file against the
+    host codec's decoding of its source at the first, the last and random
+    indices, and every .hash file against the Blake2b of its file."""
     import numpy as np
     import torch
 
     from snark_setup_tpu_torch.cli import phase1_main
+    from snark_setup_tpu_torch.phase1.buffers import Section, split
     from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
     from snark_setup_tpu_torch.phase1.protocol import Phase1
     from snark_setup_tpu_torch.transcript.hashing import calculate_hash, derive_rng_from_seed
-    from snark_setup_tpu_torch.utils.enums import ContributionMode, ProvingSystem
+    from snark_setup_tpu_torch.utils.enums import (
+        CheckForCorrectness, ContributionMode, ProvingSystem, UseCompression,
+    )
 
     curve = "bls12_377"
+    NO, YES = UseCompression.NO, UseCompression.YES
     system = ProvingSystem.MARLIN if mode == "marlin" else ProvingSystem.GROTH16
-    chunks = (1, 3) if mode == "chunked" else (0,)
     chunk_size = 1 << (power - 1)
+    full = Phase1Parameters.new_full(curve, system, power, batch)
+    spec = full.spec
+    n_chunks = -(-full.powers_g1_length // chunk_size) if mode == "chunked" else 1
     rng = np.random.default_rng(SEED + 250)
     seed = hashlib.sha256(f"chip_smoke {mode} seed".encode()).digest()
-    for index in chunks:
+    mdir = os.path.join(workdir, mode)
+    os.makedirs(mdir)
+    path = lambda name: os.path.join(mdir, name)
+    blake = lambda data: hashlib.blake2b(data, digest_size=64).digest()
+    with open(path("seed"), "w") as f:
+        f.write(seed.hex())
+
+    def read(name) -> bytes:
+        with open(path(name), "rb") as f:
+            return f.read()
+
+    def flags(index):
         common = ["--curve-kind", curve, "--proving-system", system.value, "--power", str(power),
                   "--batch-size", str(batch), "--device", dev.type]
-        if mode == "chunked":
-            common += ["--contribution-mode", "chunked", "--chunk-size", str(chunk_size),
-                       "--chunk-index", str(index)]
-            params = Phase1Parameters.new_chunk(curve, ContributionMode.CHUNKED, index, chunk_size, system,
-                                                power, batch)
+        if index is None:
+            return common + ["--contribution-mode", "full"]
+        return common + ["--contribution-mode", "chunked", "--chunk-size", str(chunk_size)] + (
+            ["--chunk-index", str(index)] if index >= 0 else [])
+
+    def cli(index, *args) -> float:
+        t0 = time.perf_counter()
+        phase1_main.execute(phase1_main.build_parser().parse_args([*flags(index), *args]))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def params_of(index):
+        if index is None:
+            return full
+        return Phase1Parameters.new_chunk(curve, ContributionMode.CHUNKED, index, chunk_size, system, power, batch)
+
+    indices = list(range(n_chunks)) if mode == "chunked" else [None]
+    for index in indices:
+        params, tag = params_of(index), "" if index is None else f"_{index}"
+        cli(index, "new", "--challenge-fname", path(f"challenge{tag}"), "--challenge-hash-fname",
+            path(f"challenge{tag}.hash"))
+        files = ["--challenge-fname", path(f"challenge{tag}"), "--challenge-hash-fname", path(f"challenge{tag}.hash"),
+                 "--response-fname", path(f"response{tag}"), "--response-hash-fname", path(f"response{tag}.hash")]
+        if mode == "beacon":
+            secs = cli(index, "beacon", *files, "--beacon-hash", seed.hex())
         else:
-            common += ["--contribution-mode", "full"]
-            params = Phase1Parameters.new_full(curve, system, power, batch)
-        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{mode}_") as tmp:
-            path = lambda name: os.path.join(tmp, name)
-            with open(path("seed"), "w") as f:
-                f.write(seed.hex())
-            cli = lambda *args: phase1_main.execute(phase1_main.build_parser().parse_args([*common, *args]))
-            cli("new", "--challenge-fname", path("challenge"), "--challenge-hash-fname", path("challenge.hash"))
-            files = ["--challenge-fname", path("challenge"), "--challenge-hash-fname", path("challenge.hash"),
-                     "--response-fname", path("response"), "--response-hash-fname", path("response.hash")]
-            t0 = time.perf_counter()
-            if mode == "beacon":
-                cli("beacon", *files, "--beacon-hash", seed.hex())
-            else:
-                cli("--seed", path("seed"), "contribute", *files)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            with open(path("challenge"), "rb") as f:
-                challenge = f.read()
-            with open(path("response"), "rb") as f:
-                response = f.read()
-            with open(path("response.hash"), "rb") as f:
-                if f.read() != calculate_hash(response):
-                    raise AssertionError(f"{curve} {mode}: response.hash is not the response's hash")
-        _, key = Phase1.key_generation(params.spec, derive_rng_from_seed(seed), calculate_hash(challenge))
-        label = f"{curve} {mode} chunk {index}"
+            secs = cli(index, "--seed", path("seed"), "contribute", *files)
+        challenge, response = read(f"challenge{tag}"), read(f"response{tag}")
+        if read(f"response{tag}.hash") != calculate_hash(response):
+            raise AssertionError(f"{curve} {mode}: response{tag}.hash is not the response's hash")
+        _, key = Phase1.key_generation(spec, derive_rng_from_seed(seed), calculate_hash(challenge))
+        label = f"{curve} {mode}" + ("" if index is None else f" chunk {index}")
         check = check_marlin_response if system is ProvingSystem.MARLIN else check_response
         checked = check(params, key, challenge, response, rng, label)
         emit({"phase": "mode", "curve": curve, "mode": mode, "proving_system": system.value, "power": power,
-              "batch_size": batch, "chunk_index": index if mode == "chunked" else None,
-              "chunk_size": chunk_size if mode == "chunked" else None, "wall_seconds": secs,
-              "response_bytes": len(response), "oracle_points_checked": checked, "hash_chain_ok": True})
+              "batch_size": batch, "chunk_index": index, "chunk_size": chunk_size if index is not None else None,
+              "wall_seconds": secs, "response_bytes": len(response), "oracle_points_checked": checked,
+              "hash_chain_ok": True})
+    if mode == "beacon":
+        return
+
+    # the coordinator's side: verification of single contributions
+    for index in ([1, n_chunks - 1] if mode == "chunked" else [None]):
+        params, tag = params_of(index), "" if index is None else f"_{index}"
+        secs = cli(index, "verify-and-transform-pok-and-correctness", "--challenge-fname", path(f"challenge{tag}"),
+                   "--challenge-hash-fname", path(f"challenge{tag}.verified.hash"),
+                   "--response-fname", path(f"response{tag}"),
+                   "--response-hash-fname", path(f"response{tag}.verified.hash"),
+                   "--new-challenge-fname", path(f"new_challenge{tag}"),
+                   "--new-challenge-hash-fname", path(f"new_challenge{tag}.verified.hash"))
+        challenge, response, new = read(f"challenge{tag}"), read(f"response{tag}"), read(f"new_challenge{tag}")
+        if not (new[:64] == blake(response) and read(f"challenge{tag}.verified.hash") == blake(challenge)
+                and read(f"response{tag}.verified.hash") == blake(response)
+                and read(f"new_challenge{tag}.verified.hash") == blake(new)):
+            raise AssertionError(f"{curve} {mode} verify{tag}: hash chain or .hash files wrong")
+        s_resp, s_new = split(params, YES), split(params, NO)
+        checked = reencoded_checks(f"{curve} {mode} verify{tag}",
+                                   [(n, spec, g, response, s_resp, YES, new, s_new, NO, 0) for n, g in MODE_SECTIONS
+                                    # beta_g2 is carried over by chunk 0 only
+                                    if n in s_resp and (n != "beta_g2" or not index)], rng)
+        emit({"phase": "mode verify", "curve": curve, "mode": mode, "chunk_index": index, "wall_seconds": secs,
+              "hash_chain_ok": True, "host_points_checked": checked})
+    if mode == "marlin":
+        return
+
+    # chunked: combine (aggregation), ratios on the combined accumulator
+    with open(path("response_list"), "w") as f:
+        f.write("".join(path(f"response_{i}") + "\n" for i in range(n_chunks)))
+    secs = cli(-1, "combine", "--response-list-fname", path("response_list"), "--combined-fname", path("combined"))
+    combined, s_comb = read("combined"), split(full, NO)
+    pairs = []
+    for i in range(n_chunks):
+        s_chunk = split(params_of(i), YES)
+        for n, g in MODE_SECTIONS:
+            if n == "beta_g2":
+                continue
+            lo = i * chunk_size
+            hi = min(lo + s_chunk[n].num_elements, s_comb[n].num_elements)
+            if hi <= lo:
+                continue
+            # the combined accumulator's slice of this chunk
+            size = s_comb[n].element_size
+            pairs.append((n, spec, g, read(f"response_{i}"), s_chunk, YES, combined,
+                          {n: Section(s_comb[n].offset + lo * size, hi - lo, size)}, NO, 0))
+    checked = reencoded_checks(f"{curve} combine", pairs, rng)
+    t_ratios = cli(None, "verify-and-transform-ratios", "--response-fname", path("combined"))
+    emit({"phase": "mode combine", "curve": curve, "chunks": n_chunks, "wall_seconds": secs,
+          "combined_bytes": len(combined), "host_points_checked": checked, "ratios_wall_seconds": t_ratios,
+          "ratios_accepted": True})
+
+    # split the beacon's full response into chunks, and decompress it
+    beacon = os.path.join(workdir, "beacon", "response")
+    secs = cli(-1, "split", "--chunk-fname-prefix", path("chunk_split"), "--full-fname", beacon)
+    with open(beacon, "rb") as f:
+        response = f.read()
+    decompressed = bytearray(full.get_length(NO))
+    t0 = time.perf_counter()
+    Phase1.decompress(response, decompressed, CheckForCorrectness.FULL, full, device=dev)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    s_resp, s_dec = split(full, YES), split(full, NO)
+    checked = reencoded_checks(f"{curve} decompress", [(n, spec, g, response, s_resp, YES, decompressed, s_dec, NO, 0)
+                                                       for n, g in MODE_SECTIONS], rng)
+    for i in range(n_chunks):
+        part, s_part = read(f"chunk_split_{i}"), split(params_of(i), NO)
+        for n, _g in MODE_SECTIONS:
+            m = s_part[n].num_elements
+            lo = 0 if n == "beta_g2" else i * chunk_size
+            if m and bytes(s_part[n].slice_of(part)) != bytes(s_dec[n].slice_of(decompressed, lo, lo + m)):
+                raise AssertionError(f"{curve} split: chunk {i} {n} is not its slice of the decompressed response")
+    emit({"phase": "mode split", "curve": curve, "chunks": n_chunks, "split_wall_seconds": secs,
+          "decompress_wall_seconds": t_dec, "host_points_checked": checked, "chunks_equal_decompressed": True})
 
 
 def ladder_widths_phase(dev, rows: list) -> None:
@@ -1612,6 +1765,199 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
     emit(result)
 
 
+def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
+    """The streaming phase 2 (`phase2/chunked.py`) on the files the `bw6_761
+    phase2` path left (the SHA-256 circuit, domain 2^16): chunk 0's
+    uncompressed challenge (its 2^15 h points and all 29860 L points; chunk
+    1 holds no L point), the combined file and challenge.full.
+
+    - chunked `contribute` in place with participant 1's seed: its hash is
+      the one of participant 1's CLI response to chunk 0, and its bytes are
+      the object API's (MPCParameters.read, contribute with the same rng,
+      write uncompressed);
+    - chunked `verify(challenge.0, that buffer)` accepts and returns that
+      hash; with one L point replaced by another subgroup point it raises
+      "L_query ratio check failed";
+    - chunked `verify(challenge.full, combined)` accepts and returns
+      combine's list (the Blake2b of each public key of the combined file).
+
+    K3 and K4 must launch in `contribute`, K2 in each verify. One JSON line
+    a step: wall seconds, kernel seconds from each launch's events, and a
+    breakdown of the host's share (reads, write-back, host points)."""
+    import torch
+
+    from snark_setup_tpu_torch.curves.constants import get_curve
+    from snark_setup_tpu_torch.curves.host import g1_curve
+    from snark_setup_tpu_torch.phase2 import chunked
+    from snark_setup_tpu_torch.phase2.keypair import Phase2PublicKey
+    from snark_setup_tpu_torch.phase2.parameters import MPCParameters
+    from snark_setup_tpu_torch.serialize.arkworks import g1_codec
+    from snark_setup_tpu_torch.transcript.hashing import derive_rng_from_seed
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
+    from snark_setup_tpu_torch.utils.errors import InvalidRatioError
+
+    spec = get_curve("bw6_761")
+    NO, FULL = UseCompression.NO, CheckForCorrectness.FULL
+    work = os.path.join(bw6_dir, "phase2_sha256")
+
+    def read(name) -> bytes:
+        with open(os.path.join(work, name), "rb") as f:
+            return f.read()
+
+    with open(os.path.join(work, "seed1")) as f:
+        seed = bytes.fromhex(f.read().strip())
+    challenge = read("challenge.0")
+    steps = {}
+
+    def step(name, fn, must_launch=()):
+        for w in wrappers.values():
+            w.events = []
+        stages = {}
+        with stage_timer(stages, phase2_breakdown_targets()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items()}
+        launches = {k: len(w.events) for k, w in wrappers.items() if w.events}
+        for w in wrappers.values():
+            w.events = None
+        for label in must_launch:  # the path's launch counts are checked in main() as well
+            if label in wrappers and not launches.get(label):
+                raise AssertionError(f"phase2 chunked: {label} was not launched in {name}")
+        kernel_s = sum(kernel_ms.values()) / 1e3
+        steps[name] = {"wall_seconds": secs, "kernel_seconds": kernel_s}
+        emit({"phase": "phase2 chunked", "step": name, "wall_seconds": secs,
+              "kernel_ms": {k: v for k, v in kernel_ms.items() if v}, "launches": launches,
+              "kernel_seconds_total": kernel_s, "seconds": stages,
+              "host_seconds": secs - kernel_s})
+        return out
+
+    g1 = ("glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]")
+    k2 = ("group_add[bw6_761/g1]", "group_dbl[bw6_761/g1]")
+    buf = bytearray(challenge) + bytes(Phase2PublicKey.size(spec))
+    h = step("contribute (chunk 0, in place)", lambda: chunked.contribute(
+        spec, buf, derive_rng_from_seed(seed), batch, NO, FULL, device=dev), g1)
+    if h != contribution_hashes(spec, read("response_0"), 1)[0]:
+        raise AssertionError("phase2 chunked: the hash is not participant 1's from the CLI")
+    want = step("object API: read + contribute + write (chunk 0)", lambda: (
+        lambda m: (m.contribute(derive_rng_from_seed(seed), dev), m.write(NO, dev))[1])(
+        MPCParameters.read(spec, challenge, NO, CheckForCorrectness.NO, device=dev)))
+    if bytes(buf) != want:
+        raise AssertionError("phase2 chunked: contribute's bytes differ from the object API's")
+    hashes = step("verify (chunk 0)", lambda: chunked.verify(spec, challenge, buf, batch, NO, FULL, device=dev), k2)
+    if hashes != [h]:
+        raise AssertionError("phase2 chunked: verify returned another hash list")
+    _, _, spans, _ = chunked._layout(spec, buf, NO)
+    bad = bytearray(buf)
+    at = spans["l"].offset + min(100, spans["l"].count - 1) * spans["l"].el_size
+    bad[at : at + spans["l"].el_size] = g1_codec(spec).serialize(g1_curve(spec).mul(g1_curve(spec).generator, 12345),
+                                                                 NO)
+    t0 = time.perf_counter()
+    try:
+        step("verify of the bad buffer (one L point replaced)",
+             lambda: chunked.verify(spec, challenge, bad, batch, NO, FULL, device=dev))
+    except InvalidRatioError as e:
+        if "L_query ratio check failed" not in str(e):
+            raise AssertionError(f"phase2 chunked: bad buffer rejected by another check: {e}") from e
+        emit({"phase": "phase2 chunked", "rejection": "L point replaced", "rejected": True,
+              "cause": f"{type(e).__name__}: {e}", "seconds": time.perf_counter() - t0})
+    else:
+        raise AssertionError("phase2 chunked: the bad buffer was accepted")
+    combined = read("combined")
+    hashes = step("verify (challenge.full -> combined)", lambda: chunked.verify(
+        spec, read("challenge.full"), combined, batch, NO, FULL, device=dev), k2)
+    if hashes != contribution_hashes(spec, combined, 2):
+        raise AssertionError("phase2 chunked: the combined file's hash list is not combine's")
+    emit({"phase": "phase2 chunked", "h_points": spans["h"].count, "l_points": spans["l"].count,
+          "bytes_equal_object_api": True, "hash_equals_cli": True, "combined_hashes_equal": True, "steps": steps})
+
+
+def mesh_phase(dev) -> None:
+    """The device mesh (shard/mesh.py) on a mesh of two entries of the one
+    card: `sharded_step_fn` on BLS12-377 G1 at BATCH lanes and at a ragged
+    BATCH + 1 (padded to a multiple of the mesh), and
+    `sharded_group_ifft_fn` on BW6-761 G1 at MESH_IFFT_POINTS (2^14), each equal to the
+    single-device result: the products and the IFFT limb for limb, the MSM
+    total as a point. Inputs are seeded multiples of the generator made on
+    the card. No time is claimed: both shards share one card."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
+    from snark_setup_tpu_torch.ntt.group_fft import group_fft
+    from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
+    from snark_setup_tpu_torch.shard.mesh import make_mesh, sharded_group_ifft_fn, sharded_step_fn
+
+    mesh = make_mesh(devices=[dev, dev])
+    rng = np.random.default_rng(SEED + 900)
+
+    def points(ops, n):
+        r = ops.spec.r
+        ks = [int.from_bytes(rng.bytes(64), "little") % r for _ in range(n)]
+        g = ops.from_affine_host([ops.host_curve.generator], dev)
+        gs = PointVec({k: v.expand(*v.shape[:-1], n).contiguous() for k, v in g.items()})
+        return ops.scalar_mul(gs, ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev))
+
+    same = lambda a, b: all(torch.equal(a[k], b[k]) for k in ("x", "y", "z"))
+    result = {"phase": "mesh", "mesh": [str(d) for d in mesh.devices]}
+    ops = curve_ops("bls12_377", "g1")
+    for n in (BATCH, BATCH + 1):
+        pts = points(ops, n)
+        sc = ops.fr.tensor(ints_to_limbs_batch([int.from_bytes(rng.bytes(48), "little") % ops.spec.r
+                                                for _ in range(n)], ops.fr.L).T, dev)
+        prods, total = sharded_step_fn(ops, mesh)(pts, sc)
+        single = ops.scalar_mul(pts, sc)
+        if not same(prods, single):
+            raise AssertionError(f"mesh: sharded_step_fn's products at {n} lanes differ from one device's")
+        if ops.to_affine_host(total) != ops.to_affine_host(ops.sum_reduce(single)):
+            raise AssertionError(f"mesh: sharded_step_fn's total at {n} lanes differs from one device's")
+        result[f"step_bls12_377_g1_{n}"] = "equal"
+    ops = curve_ops("bw6_761", "g1")
+    n = MESH_IFFT_POINTS
+    pts = points(ops, n)
+    want = group_fft("bw6_761", "g1", n).ifft(pts)
+    if not same(sharded_group_ifft_fn("bw6_761", "g1", n, mesh)(pts), want):
+        raise AssertionError("mesh: the sharded IFFT differs from one device's")
+    result[f"ifft_bw6_761_g1_{n}"] = "equal"
+    torch.cuda.synchronize()
+    emit(result)
+
+
+def portable_phase(dev, bw6_dir: str) -> None:
+    """The portable contributor (`portable/contributor.py`, pure host Python)
+    on the prover gate's x^2 challenge (BW6-761, domain 8) that the `bw6_761
+    prover` path left: `contribute_challenge` with a fixed seed on the host,
+    then the port's `MPCParameters.verify` on the card accepts the response,
+    and its last hash is the one returned."""
+    import random
+
+    import torch
+
+    from snark_setup_tpu_torch.curves.constants import get_curve
+    from snark_setup_tpu_torch.phase2.parameters import MPCParameters
+    from snark_setup_tpu_torch.portable import contribute_challenge
+    from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
+
+    spec = get_curve("bw6_761")
+    with open(os.path.join(bw6_dir, "phase2_prover", "challenge.0"), "rb") as f:
+        challenge = f.read()
+    t0 = time.perf_counter()
+    response, h = contribute_challenge(challenge, "outer", seed=hashlib.sha256(b"chip_smoke portable").digest())
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    before = MPCParameters.read(spec, challenge, UseCompression.NO, CheckForCorrectness.NO, device=dev)
+    after = MPCParameters.read(spec, response, UseCompression.YES, CheckForCorrectness.FULL, device=dev)
+    hashes = before.verify(after, rlc_rng=random.Random(SEED), device=dev)
+    torch.cuda.synchronize()
+    if hashes[-1] != h:
+        raise AssertionError("portable: the verified hash is not the contributor's")
+    emit({"phase": "portable", "curve": "bw6_761", "challenge_bytes": len(challenge), "response_bytes": len(response),
+          "host_contribute_seconds": t_host, "verify_seconds": time.perf_counter() - t0, "verified": True,
+          "hash_equal": True})
+
+
 def verify_breakdown_phase(dev, power: int, batch: int, workdir: str) -> None:
     """One batch of the BW6-761 verify loop (tau_g1[0 : batch + 1] of the
     path's response), stage by stage, each ended with a synchronize."""
@@ -1881,7 +2227,7 @@ def main() -> int:
             """The wrappers of a verify path's rows (and of the `also` rows)."""
             return {r["_label"]: r["_wrapper"] for r in rows if r["_path"] in (path, *also)}
 
-        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "mnt4_753")}
+        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "mnt4_753", "modes")}
         for d in dirs.values():
             os.makedirs(d)
         bw6_dir, bls_dir = dirs["bw6_761"], dirs["bls12_377"]
@@ -1916,21 +2262,33 @@ def main() -> int:
             ("route scalar-muls", lambda: route_scalar_mul_phase(
                 dev, BATCH, {r["_label"]: r["_wrapper"] for r in rows}, mxu_reducers(("mnt4_753", "mnt6_753")))),
             # the ladder's other modes on BLS12-377 (K3 + K4 on G1, K3 on G2)
-            ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH)),
-            ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH)),
-            ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH)),
+            # and their coordinator's side (the beacon's response is split)
+            ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH, dirs["modes"])),
+            ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH, dirs["modes"])),
+            ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH, dirs["modes"])),
             # phase 2 on BW6-761 from the verify path's new challenge: the
             # SHA-256 circuit's ceremony, then the prover gate
             ("bw6_761 phase2", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "sha256")),
             ("bw6_761 prover", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "prover")),
+            # the streaming phase 2 on the SHA-256 path's files, the device
+            # mesh over two entries of the card, the portable contributor on
+            # the prover gate's challenge
+            (CHUNKED_PATH, lambda: phase2_chunked_phase(dev, BATCH, bw6_dir, phase2_wrappers)),
+            ("mesh", lambda: mesh_phase(dev)),
+            ("portable", lambda: portable_phase(dev, bw6_dir)),
         )
         if args.power < 16:  # the SHA-256 circuit's domain is 2^16
-            paths = tuple(p for p in paths if p[0] != "bw6_761 phase2")
+            paths = tuple(p for p in paths if p[0] not in ("bw6_761 phase2", CHUNKED_PATH))
             emit({"phase": "phase2", "part": "sha256", "skipped": "its domain 2^16 needs --power 16"})
         # kernels that must launch on a path besides the rows it owns
         also = {p: ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "glv_digits[bls12_377/g2]")
                 for p in ("bls12_377 beacon", "bls12_377 chunked", "bls12_377 marlin")}
         also |= {p: PHASE2_KERNELS + ("group_dbl[bw6_761/g1]",) for p in PHASE2_PATHS}
+        also[CHUNKED_PATH] = ("glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]", "group_add[bw6_761/g1]",
+                              "group_dbl[bw6_761/g1]")
+        also["mesh"] = ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "group_add[bls12_377/g1]",
+                        "glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]", "group_add[bw6_761/g1]")
+        also["portable"] = ("group_add[bw6_761/g1]", "group_dbl[bw6_761/g1]")
         for curve, run in paths:
             for w in wrappers:
                 w.launches = 0
@@ -1954,7 +2312,7 @@ def main() -> int:
             for label, n in launched.items():
                 if n <= 0:
                     raise AssertionError(f"{label} was never launched on the {curve} path")
-            if curve in PHASE2_PATHS:
+            if curve in (*PHASE2_PATHS, CHUNKED_PATH):
                 for r in rows:
                     if r["_wrapper"] in phase2_wrappers.values():
                         r.setdefault("phase2_launches", {})[curve] = r["_wrapper"].launches

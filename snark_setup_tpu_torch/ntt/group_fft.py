@@ -94,8 +94,9 @@ class GroupFFT:
     # -- transform ---------------------------------------------------------
     def _butterflies(self, x: PointVec, m: int, tw) -> PointVec:
         """One stage over blocks of m points: (even, odd) -> (even + tw odd,
-        even - tw odd), tw = None meaning all ones."""
-        ops, n, half = self.ops, self.n, m // 2
+        even - tw odd), tw = None meaning all ones. The batch may be any
+        whole number of blocks (one shard of the transform: shard/mesh.py)."""
+        ops, n, half = self.ops, int(x["x"].shape[-1]), m // 2
 
         def part(v, i):  # lanes (block, i, j) of v -> (..., n/2), block-major
             return v.reshape(*v.shape[:-1], n // m, 2, half)[..., i, :].reshape(*v.shape[:-1], n // 2)

@@ -422,7 +422,7 @@ class Phase1:
                 """Nonzero + subgroup check, optional RLC power-pair ratio
                 check, and write-through into the new challenge."""
                 n = ec - sc
-                pad = runtime.pad_width(parameters.batch_size + 1)
+                pad = runtime.pad_width(parameters.batch_size + 1, dev)
                 pts = codec.read_batch(
                     bytes(sec_out[sec_name].slice_of(output_buf, sc, ec)),
                     compressed_output,
@@ -439,7 +439,7 @@ class Phase1:
                     else:
                         eng.check_same_ratio(check_pair_g1, (s_pt, sx_pt), f"Power pairs {sec_name}")
                 sec_new[sec_name].slice_of(new_challenge, sc, ec)[:] = codec.write_batch(
-                    pts, compressed_new_challenge, normalized=True, n_valid=n
+                    runtime.gather(pts), compressed_new_challenge, normalized=True, n_valid=n
                 )
 
             for start, end in iter_chunk(parameters):
@@ -495,7 +495,7 @@ class Phase1:
 
             def ratio_section(codec, sec_name, s, e, check_pair_g2=None, check_pair_g1=None):
                 n = e - s
-                pad = runtime.pad_width(parameters.batch_size + 1)
+                pad = runtime.pad_width(parameters.batch_size + 1, dev)
                 pts = codec.read_batch(
                     bytes(sec[sec_name].slice_of(output_buf, s, e)),
                     compressed_output,
@@ -722,10 +722,20 @@ def _pow_u32(
     return fr.from_mont(fr.mont_mul(acc, coeff_mont))
 
 
-def _power_pairs_start(ops: CurveOps, pts: PointVec, scalars_raw: np.ndarray):
+def _power_pairs_start(ops: CurveOps, pts, scalars_raw: np.ndarray):
     """merge_pairs(v[:-1], v[1:]) with shared random scalars
     (helpers.rs:371-390): two MSMs over public scalars on the points'
-    device. Returns the two 1-point sums without waiting for the device."""
+    device. Returns the two 1-point sums without waiting for the device.
+
+    On a batch cut over a mesh (shard/runtime.py) both MSMs run over the
+    whole batch, v[:-1] as the scalars with a 0 appended and v[1:] as a 0
+    followed by the scalars, each as per-shard partial MSMs added across the
+    shards: no shard needs a neighbour's points."""
+    if isinstance(pts, runtime.Sharded):
+        zero = np.zeros((scalars_raw.shape[0], 1), scalars_raw.dtype)
+        msm = lambda p, s: msm_public(ops, p, s, RLC_BITS)
+        return (runtime.reduce_over(ops, msm, pts, np.concatenate([scalars_raw, zero], axis=1)),
+                runtime.reduce_over(ops, msm, pts, np.concatenate([zero, scalars_raw], axis=1)))
     head = PointVec({k: v[..., :-1] for k, v in pts.items()})
     tail = PointVec({k: v[..., 1:] for k, v in pts.items()})
     return msm_public(ops, head, scalars_raw, RLC_BITS), msm_public(ops, tail, scalars_raw, RLC_BITS)
@@ -737,7 +747,7 @@ def _power_pairs_finish(ops: CurveOps, handle):
     return ops.to_affine_host(s)[0], ops.to_affine_host(sx)[0]
 
 
-def _power_pairs_device(ops: CurveOps, pts: PointVec, scalars_raw: np.ndarray):
+def _power_pairs_device(ops: CurveOps, pts, scalars_raw: np.ndarray):
     """Both halves of the merge-pairs MSM in one call."""
     return _power_pairs_finish(ops, _power_pairs_start(ops, pts, scalars_raw))
 
@@ -787,21 +797,22 @@ def _check_subgroup_device(codec: BatchPointCodec, pts: PointVec, mode: Subgroup
     _subgroup_finish(_subgroup_start(codec, pts, mode, n))
 
 
-def _subgroup_start(codec: BatchPointCodec, pts: PointVec, mode: SubgroupCheckMode, n: int):
+def _subgroup_start(codec: BatchPointCodec, pts, mode: SubgroupCheckMode, n: int):
     """Device half of _check_subgroup_device: the all-ok flag as a device
-    tensor (no wait for the device), with the kind of check."""
+    tensor (no wait for the device), with the kind of check. On a batch cut
+    over a mesh the Direct masks run per shard, and the subset sums are
+    per-shard partial sums added across the shards."""
     if mode is SubgroupCheckMode.NO:
         return None
     batched = mode is SubgroupCheckMode.BATCHED or (mode is SubgroupCheckMode.AUTO and n > (1 << 12))
     ops = codec.ops
     if not batched:
-        ok = codec.subgroup_mask(pts) | ops.is_infinity(pts)
-        return ("direct", ok.all())
-    pad = int(pts["x"].shape[-1])
+        return ("direct", runtime.all_over(lambda p: codec.subgroup_mask(p) | ops.is_infinity(p), pts))
+    pad = runtime.width(pts)
     rounds = SUBGROUP_BATCH_ROUNDS
     raw = np.frombuffer(secrets.token_bytes(rounds * pad), np.uint8)
     bits = (raw.reshape(rounds, pad) & 1).astype(bool)
-    sums = _batched_subgroup_sums(ops, pts, bits)
+    sums = runtime.reduce_over(ops, lambda p, b: _batched_subgroup_sums(ops, p, b), pts, bits)
     # an empty subset's sum is infinity, which the Direct mask accepts; a
     # sum that hit the formulas' exceptional case, (0 : 0 : 0), it rejects
     # (the reference's `| is_infinity(sums)` would accept it: Z = 0)

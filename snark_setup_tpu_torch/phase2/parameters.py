@@ -21,7 +21,7 @@ from ..curves.constants import CurveSpec
 from ..curves.host import AffinePoint, g1_curve, g2_curve
 from ..curves.pairing import pairing_engine
 from ..fields.limb import ints_to_limbs_batch
-from ..ops.curve import CurveOps, curve_ops
+from ..ops.curve import CurveOps, PointVec, curve_ops
 from ..ops.lanes import lanewise
 from ..transcript.hashing import hash_to_g2
 from ..utils.device import resolve_device
@@ -206,13 +206,20 @@ def merge_pairs_device(
     threshold; merge_pairs, setup-utils/src/helpers.rs:371-384). The t_i are
     drawn from `rng` as the reference draws them (reproducible verification;
     reference wart: thread_rng)."""
-    from ..ops.msm import RLC_BITS, msm_public, rlc_scalars
-
     assert len(v1) == len(v2) and v1
     dev = resolve_device(device)
-    raw = rlc_scalars(len(v1), RLC_BITS, rng)
-    s_pt = msm_public(ops, ops.from_affine_host(v1, dev), raw, RLC_BITS)
-    sx_pt = msm_public(ops, ops.from_affine_host(v2, dev), raw, RLC_BITS)
+    return merge_point_pairs(ops, ops.from_affine_host(v1, dev), ops.from_affine_host(v2, dev), rng)
+
+
+def merge_point_pairs(ops: CurveOps, p1: PointVec, p2: PointVec, rng=None) -> tuple[AffinePoint, AffinePoint]:
+    """merge_pairs_device over two device batches of one width (the
+    streaming verify's decoded batches): the same scalars from `rng`, the
+    same sums."""
+    from ..ops.msm import RLC_BITS, msm_public, rlc_scalars
+
+    raw = rlc_scalars(int(p1["x"].shape[-1]), RLC_BITS, rng)
+    s_pt = msm_public(ops, p1, raw, RLC_BITS)
+    sx_pt = msm_public(ops, p2, raw, RLC_BITS)
     return ops.to_affine_host(s_pt)[0], ops.to_affine_host(sx_pt)[0]
 
 

@@ -339,11 +339,25 @@ def test_phase2_host_copies_are_byte_equal(rel):
         assert f.read() == ref
 
 
+@pytest.mark.parametrize("rel", ["portable/__init__.py", "portable/contributor.py"])
+def test_portable_copies_are_byte_equal_but_the_package_name(rel):
+    """The portable contributor is a copy; only its `_main` docstring names
+    the package it is run from."""
+    with open(os.path.join(REPO, "snark_setup_tpu", rel), "rb") as f:
+        ref = f.read()
+    with open(os.path.join(REPO, "snark_setup_tpu_torch", rel), "rb") as f:
+        got = f.read()
+    name = b"python -m snark_setup_tpu.portable.contributor"
+    assert ref.count(name) == (1 if rel.endswith("contributor.py") else 0)
+    assert got == ref.replace(name, b"python -m snark_setup_tpu_torch.portable.contributor")
+
+
 PHASE2_MODULES = [
     "ntt", "ntt.domain", "ntt.group_fft", "ops.lanes", "ops.msm", "phase2", "phase2.vecio", "phase2.lagrange",
     "phase2.polynomial", "phase2.parameters", "phase2.keypair", "phase2.r1cs", "phase2.load_circuit",
-    "phase2.sha256_circuit", "phase2.groth16", "cli.phase2_cmds", "cli.phase2_main", "cli.prepare_phase2_main",
-    "cli.circuit_main",
+    "phase2.sha256_circuit", "phase2.groth16", "phase2.chunked", "cli.phase2_cmds", "cli.phase2_main",
+    "cli.prepare_phase2_main", "cli.circuit_main", "shard", "shard.mesh", "shard.runtime", "portable",
+    "portable.contributor",
 ]
 
 
@@ -369,6 +383,26 @@ def test_phase2_modules_import_without_jax():
         "    importlib.import_module('snark_setup_tpu_torch.' + m)\n"
         "assert not [m for m, v in sys.modules.items() if v is not None\n"
         "            and (m in ('jax', 'snark_setup_tpu') or m.startswith(('jax.', 'snark_setup_tpu.')))]\n"
+    )
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
+def test_portable_imports_without_torch():
+    """The portable contributor (and the host modules it needs) imports in an
+    interpreter where `torch`, `jax` and the JAX package cannot be
+    imported."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "sys.modules['torch'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['snark_setup_tpu'] = None\n"
+        f"sys.path.insert(0, {REPO!r})\n"
+        "from snark_setup_tpu_torch.portable import contribute_challenge\n"
+        "import snark_setup_tpu_torch.portable.contributor\n"
     )
     done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr[-2000:]

@@ -6,7 +6,10 @@ call with every kernel replaced by its plain PyTorch version on the same
 CUDA tensors, and the transforms also to the host scalar oracle.
 
 These tests need an NVIDIA GPU and nvcc: they are marked `gpu`, decide inside
-the test whether a card is present, and skip without one. Run them on the
+the test whether a card is present, and skip without one. Also on the card:
+the streaming contribution (`phase2/chunked.py`) equal byte for byte to the
+same contribution on the CPU, and the device mesh over two entries of the
+card (`shard/mesh.py`) equal to the single-device results. Run them on the
 machine with the card:
 
     python -m pytest tests/test_torch_phase2_gpu.py -q -m gpu
@@ -18,15 +21,22 @@ import random
 import pytest
 import torch
 
-from snark_setup_tpu_torch.curves.host import INFINITY
+from snark_setup_tpu_torch.curves.constants import get_curve
+from snark_setup_tpu_torch.curves.host import INFINITY, g1_curve, g2_curve
 from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
 from snark_setup_tpu_torch.ntt import GroupFFT, Radix2Domain, h_query_device
 from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for, glv_digits_plain
 from snark_setup_tpu_torch.ops.cuda_ladder import glv_ladder_plain
 from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops, plain_group_law
 from snark_setup_tpu_torch.ops.msm import msm_secret
+from snark_setup_tpu_torch.phase2 import chunked
+from snark_setup_tpu_torch.phase2.keypair import Keypair, Phase2PublicKey
+from snark_setup_tpu_torch.phase2.parameters import MPCParameters, ProvingKey, VerifyingKey
 from snark_setup_tpu_torch.phase2.polynomial import dot_product_vec, process_matrix
 from snark_setup_tpu_torch.phase2.r1cs import TestCircuit, TestParallelCircuit, circuit_to_qap
+from snark_setup_tpu_torch.shard.mesh import make_mesh, sharded_group_ifft_fn, sharded_step_fn
+from snark_setup_tpu_torch.transcript.hashing import derive_rng_from_seed
+from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
 
 GROUPS = [("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g2")]
 
@@ -130,3 +140,102 @@ def test_msm_secret_equals_plain_version_on_the_card(curve, group):
         raw = ints_to_limbs_batch(ks, ops.fr.L).T
         got = msm_secret(ops, pts, raw)
         assert _equal(got, msm_secret(_plain(ops), pts, raw))
+
+
+def _mpc_file(curve: str, n: int, comp: UseCompression) -> bytes:
+    """MPCParameters bytes with n h points and n - 1 L points (a walk of
+    host additions from the generator), empty a / b queries."""
+    spec = get_curve(curve)
+    c1, c2 = g1_curve(spec), g2_curve(spec)
+    step, p, walk = c1.mul(c1.generator, 7), c1.mul(c1.generator, 5), []
+    for _ in range(2 * n - 1):
+        walk.append(p)
+        p = c1.add(p, step)
+    vk = VerifyingKey(c1.generator, c2.generator, c2.generator, c2.generator, [c1.generator])
+    pk = ProvingKey(vk, c1.generator, c1.generator, [], [], [], walk[:n], walk[n:])
+    return MPCParameters(spec, pk, bytes(range(64)), []).write(comp, "cpu")
+
+
+def _chunked_on(where, data: bytes, batch: int, comp: UseCompression):
+    spec = get_curve("bls12_377")
+    buf = bytearray(data)
+    h = chunked.contribute(spec, buf, derive_rng_from_seed(SEED_CHUNKED), batch, comp, CheckForCorrectness.FULL,
+                           device=where)
+    return h, bytes(buf)
+
+
+SEED_CHUNKED = b"\x11" * 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("comp", ["NO", "YES"])
+@pytest.mark.parametrize("n,batch", [(1, 4), (33, 16)])
+def test_chunked_contribute_on_the_card_equals_the_cpu(n, batch, comp):
+    """The streaming contribution on BLS12-377 (K3 + K4 on the card, the
+    plain versions on the CPU) at 1 and 33 points, the last batch of the
+    33 ragged (33 = 2 x 16 + 1): the same bytes and hash."""
+    dev = _card()
+    spec, c = get_curve("bls12_377"), UseCompression[comp]
+    data = _mpc_file("bls12_377", n, c) + bytes(Phase2PublicKey.size(spec))
+    dig = glv_digits_for("bls12_377", "g1")
+    launches = dig.launches
+    on_card = _chunked_on(dev, data, batch, c)
+    assert dig.launches - launches == -(-n // batch) + -(-(n - 1) // batch)  # one per batch of h, L
+    assert on_card == _chunked_on("cpu", data, batch, c)
+    assert on_card[1] != data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("comp", ["NO", "YES"])
+def test_chunked_contribute_on_the_card_at_4097_points(comp):
+    """4097 h and 4096 L points in batches of 1024 (the last of h ragged):
+    the same bytes and hash as the object API on the card (read,
+    contribute, write: one slice of MAX_LANES), and h[i], L[i] =
+    delta^-1 times the input at the first, the last and two inner indices
+    (host oracle). The plain versions take minutes on the CPU at this
+    width, so they are held against the kernels at 1 and 33 points above."""
+    dev = _card()
+    spec, c = get_curve("bls12_377"), UseCompression[comp]
+    n = 4097
+    data = _mpc_file("bls12_377", n, c)
+    h, buf = _chunked_on(dev, data + bytes(Phase2PublicKey.size(spec)), 1024, c)
+    obj = MPCParameters.read(spec, data, c, device=dev)
+    before = MPCParameters.read(spec, data, c, device=dev)
+    assert obj.contribute(derive_rng_from_seed(SEED_CHUNKED), dev) == h
+    assert obj.write(c, dev) == buf
+    kp = Keypair.new(spec, derive_rng_from_seed(SEED_CHUNKED), before.params.delta_g1, before.cs_hash, [])
+    delta_inv = pow(kp.private_key.delta, -1, spec.r)
+    g1 = g1_curve(spec)
+    for i in (0, 1024, 2048, n - 2):
+        assert obj.params.h_query[i] == g1.mul(before.params.h_query[i], delta_inv)
+        assert obj.params.l_query[i] == g1.mul(before.params.l_query[i], delta_inv)
+    assert obj.params.h_query[n - 1] == g1.mul(before.params.h_query[n - 1], delta_inv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("curve,B", [("bls12_377", 16384), ("bls12_377", 16385), ("bw6_761", 33)])
+def test_sharded_step_on_a_mesh_of_the_card_equals_one_device(curve, B):
+    """sharded_step_fn over two entries of the one card: the products limb
+    for limb, the total as a point, equal to the single-device ones."""
+    dev = _card()
+    ops = curve_ops(curve, "g1")
+    rnd = random.Random(B)
+    with torch.no_grad():
+        pts = _oracle(ops, [rnd.randrange(1, ops.spec.r) for _ in range(B)], dev)
+        sc = ops.fr.tensor(ints_to_limbs_batch([rnd.randrange(ops.spec.r) for _ in range(B)], ops.fr.L).T, dev)
+        prods, total = sharded_step_fn(ops, make_mesh(devices=[dev, dev]))(pts, sc)
+        single = ops.scalar_mul(pts, sc)
+        assert _equal(prods, single)
+        assert ops.to_affine_host(total) == ops.to_affine_host(ops.sum_reduce(single))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 1 << 12])
+def test_sharded_group_ifft_on_a_mesh_of_the_card_equals_one_device(n):
+    dev = _card()
+    ops = curve_ops("bw6_761", "g1")
+    rnd = random.Random(n + 1)
+    with torch.no_grad():
+        pts = _oracle(ops, [rnd.randrange(1, ops.spec.r) for _ in range(n)], dev)
+        want = GroupFFT(ops, Radix2Domain("bw6_761", n)).ifft(pts)
+        assert _equal(sharded_group_ifft_fn("bw6_761", "g1", n, make_mesh(devices=[dev, dev]))(pts), want)

@@ -12,8 +12,8 @@ against the JAX package.
 - A wrong digest, a tampered byte and an out-of-subgroup point (DIRECT and
   BATCHED on BLS12-377 G1, DIRECT on BW6-761 G1) raise the same exception
   class in both packages.
-- `aggregate_verification` and `_batched_subgroup_sums` (same subset bits)
-  agree with the JAX package.
+- `aggregate_verification` (Groth16 and Marlin) and `_batched_subgroup_sums`
+  (same subset bits) agree with the JAX package.
 - The CLI chain on `--device cpu`: new -> contribute -> verify -> beacon ->
   verify -> ratios, and chunked combine / split, hash chain intact.
 
@@ -433,6 +433,29 @@ def test_cli_chunked_combine_split(tmp_path):
                 continue
             lo = 0 if name == "beta_g2" else 4 * i
             assert bytes(sc.slice_of(part)) == bytes(s_full[name].slice_of(decompressed, lo, lo + sc.num_elements)), (i, name)
+
+
+def test_marlin_aggregate_verification_agrees(transcripts):
+    """The Marlin branch of aggregate_verification (the degree-bound host
+    ratio checks beside the RLC power pairs): both packages accept the
+    verified Marlin new challenge and reject it with its two tau_g1 powers
+    (power 1: G1 and tau G1) swapped, with the same exception class and
+    message."""
+    jp, tp = _params("bls12_377_marlin")
+    new = bytearray(transcripts("bls12_377_marlin")["new"])
+    TPhase1.aggregate_verification(new, te.UseCompression.NO, te.CheckForCorrectness.FULL, tp,
+                                   rlc_rng=random.Random(1), device="cpu")
+    JPhase1.aggregate_verification(new, je.UseCompression.NO, je.CheckForCorrectness.FULL, jp,
+                                   rlc_rng=random.Random(1))
+    sec = split(tp, te.UseCompression.NO)["tau_g1"]
+    assert sec.num_elements == 2
+    a, b = bytes(sec.slice_of(new, 0, 1)), bytes(sec.slice_of(new, 1, 2))
+    sec.slice_of(new, 0, 1)[:], sec.slice_of(new, 1, 2)[:] = b, a
+    et = _raised(lambda: TPhase1.aggregate_verification(
+        new, te.UseCompression.NO, te.CheckForCorrectness.FULL, tp, device="cpu"))
+    ej = _raised(lambda: JPhase1.aggregate_verification(new, je.UseCompression.NO, je.CheckForCorrectness.FULL, jp))
+    assert type(et).__name__ == "InvalidRatioError"
+    assert (type(et).__name__, str(et)) == (type(ej).__name__, str(ej))
 
 
 @pytest.mark.parametrize("mode", ["DIRECT", "BATCHED"])

@@ -1,5 +1,6 @@
 """Shared inputs and JAX-package outputs of the phase-2 parity tests
-(tests/test_torch_phase2.py, tests/test_torch_cli_phase2.py).
+(tests/test_torch_phase2.py, tests/test_torch_cli_phase2.py,
+tests/test_torch_phase2_chunked.py).
 
 - `phase1_transcript`: a full, uncompressed Groth16 phase-1 transcript made
   with host arithmetic (fixed tau, alpha, beta), handed to both packages.
@@ -12,6 +13,9 @@
   needs the outputs computes them in a fresh interpreter (an XLA:CPU abort
   then fails a test instead of taking a worker down) under a file lock in
   the directory the workers share; the others read them.
+- `jax_chunked_reference` / `chunked_reference`: the JAX package's streaming
+  phase 2 on MPCParameters bytes, the same way in a fresh interpreter of
+  its own.
 """
 
 import contextlib
@@ -210,6 +214,93 @@ def jax_reference(transcript: bytes, workdir: str) -> dict:
     return out
 
 
+CHUNKED_BATCH = 4  # the streaming batch: the h (7) and l vectors take two batches each
+CHUNKED_SEEDS = (b"chunked-1" + b"\0" * 23, b"chunked-2" + b"\0" * 23)
+E2E_CHUNK = 2  # TestCircuit's domain of 8 // 3: four chunks of the h query
+E2E_SEED = b"\0" * 32
+REJECTIONS = ("a_point", "l_point", "truncated", "no_contributions", "only_non_zero_verify",
+              "only_non_zero_contribute")
+
+
+def tampered(layout, g1_ser, g1_curve, base: bytes, contributed: bytes, comp) -> dict:
+    """The rejection cases of the streaming verify, as (before, after)
+    buffers from one package's `_layout`, G1 serializer and host curve:
+    an a-query point replaced by another subgroup point, an L point likewise,
+    the L vector one point short, no contribution (before = after)."""
+    _, _, spans, _ = layout(base, comp)
+    _, _, after_spans, _ = layout(contributed, comp)
+    out = {}
+    for case, name, k in (("a_point", "a", 7), ("l_point", "l", 12345)):
+        bad = bytearray(contributed)
+        at = after_spans[name].offset
+        bad[at : at + after_spans[name].el_size] = g1_ser(g1_curve.mul(g1_curve.generator, k), comp)
+        out[case] = (base, bytes(bad))
+    span = after_spans["l"]
+    short = bytearray(contributed)
+    short[span.offset - 8 : span.offset] = (span.count - 1).to_bytes(8, "little")
+    del short[span.end - span.el_size : span.end]
+    out["truncated"] = (base, bytes(short))
+    out["no_contributions"] = (base, base)
+    return out
+
+
+def jax_chunked_reference(inputs: dict) -> dict:
+    """The JAX package's streaming phase 2 (`phase2/chunked.py`) on the
+    MPCParameters bytes in `inputs` (made by the port's `new` /
+    `new_chunked`, which tests/test_torch_phase2.py holds to the JAX
+    package's): per compression two in-place contributions, three streaming
+    verifications and the rejections; then the end-to-end chunked flow of
+    tests/test_phase2_chunked.py (a contribution per chunk, `combine`, the
+    streaming verify of the combined parameters)."""
+    from snark_setup_tpu.curves.constants import get_curve
+    from snark_setup_tpu.curves.host import g1_curve
+    from snark_setup_tpu.phase2 import chunked
+    from snark_setup_tpu.phase2.keypair import Phase2PublicKey
+    from snark_setup_tpu.phase2.parameters import MPCParameters, ProvingKey
+    from snark_setup_tpu.phase2.vecio import Cursor
+    from snark_setup_tpu.serialize.arkworks import g1_codec
+    from snark_setup_tpu.transcript.hashing import derive_rng_from_seed
+    from snark_setup_tpu.utils.enums import CheckForCorrectness, UseCompression
+
+    spec = get_curve(CURVE)
+    FULL, ONZ = CheckForCorrectness.FULL, CheckForCorrectness.ONLY_NON_ZERO
+    pk_size = Phase2PublicKey.size(spec)
+    out = {}
+    for comp in (UseCompression.NO, UseCompression.YES):
+        base = inputs["mpc"][comp.name]
+        res = {"hashes": [], "contributed": []}
+        prev = base
+        for seed in CHUNKED_SEEDS:
+            buf = bytearray(prev) + bytes(pk_size)
+            res["hashes"].append(chunked.contribute(spec, buf, derive_rng_from_seed(seed), CHUNKED_BATCH, comp, FULL))
+            res["contributed"].append(bytes(buf))
+            prev = bytes(buf)
+        c1, c2 = res["contributed"]
+        res["verify"] = [chunked.verify(spec, b, a, CHUNKED_BATCH, comp, FULL, rlc_rng=random.Random(21 + i))
+                         for i, (b, a) in enumerate(((base, c1), (c1, c2), (base, c2)))]
+        cases = tampered(lambda d, c: chunked._layout(spec, d, c), g1_codec(spec).serialize, g1_curve(spec), base,
+                         c1, comp)
+        rej = {case: _raised(lambda b=b, a=a: chunked.verify(spec, b, a, CHUNKED_BATCH, comp, FULL,
+                                                                rlc_rng=random.Random(24)))
+               for case, (b, a) in cases.items()}
+        rej["only_non_zero_verify"] = _raised(lambda: chunked.verify(spec, base, c1, CHUNKED_BATCH, comp, ONZ))
+        rej["only_non_zero_contribute"] = _raised(lambda: chunked.contribute(
+            spec, bytearray(base) + bytes(pk_size), derive_rng_from_seed(CHUNKED_SEEDS[0]), CHUNKED_BATCH, comp, ONZ))
+        res["rejections"] = rej
+        out[comp.name] = res
+
+    NO, YES = UseCompression.NO, UseCompression.YES
+    mpcs = [MPCParameters.read(spec, c, NO) for c in inputs["chunks"]]
+    for m in mpcs:
+        m.contribute(derive_rng_from_seed(E2E_SEED))
+    query = ProvingKey.read(spec, Cursor(inputs["query"]), NO, CheckForCorrectness.NO)
+    combined = MPCParameters.combine(spec, query, mpcs).write(YES)
+    full = MPCParameters.read(spec, inputs["full"], NO).write(YES)
+    out["e2e"] = {"chunks": [m.write(NO) for m in mpcs], "combined": combined,
+                  "verify": chunked.verify(spec, full, combined, 3, YES, FULL, rlc_rng=random.Random(50))}
+    return out
+
+
 def in_fresh_interpreter(module: str, name: str, *args):
     """`name(*args)` of the test module `module`, run in a new Python
     process set up as tests/conftest.py sets up this one, with a large
@@ -252,6 +343,24 @@ def reference(tmp_path_factory) -> dict:
             data = {"transcript": transcript,
                     "jax": in_fresh_interpreter("torch_phase2_reference", "jax_reference", transcript,
                                                 str(workdir))}
+            with open(path, "wb") as f:
+                pickle.dump(data, f)
+    with open(path, "rb") as f:
+        return pickle.load(f)  # written by this test run
+
+
+def chunked_reference(tmp_path_factory, make_inputs) -> dict:
+    """`jax_chunked_reference` of the inputs that `make_inputs()` returns,
+    made once per run in a fresh interpreter (a file of its own: an abort of
+    its XLA:CPU compiles fails the streaming tests alone); returns
+    {"inputs": ..., "jax": ...}."""
+    root = shared_dir(tmp_path_factory)
+    path = root / "torch_phase2_chunked_reference.pkl"
+    with FileLock(str(path) + ".lock"):
+        if not path.exists():
+            inputs = make_inputs()
+            data = {"inputs": inputs,
+                    "jax": in_fresh_interpreter("torch_phase2_reference", "jax_chunked_reference", inputs)}
             with open(path, "wb") as f:
                 pickle.dump(data, f)
     with open(path, "rb") as f:
