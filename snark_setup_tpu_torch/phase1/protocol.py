@@ -727,18 +727,15 @@ def _power_pairs_start(ops: CurveOps, pts, scalars_raw: np.ndarray):
     (helpers.rs:371-390): two MSMs over public scalars on the points'
     device. Returns the two 1-point sums without waiting for the device.
 
-    On a batch cut over a mesh (shard/runtime.py) both MSMs run over the
-    whole batch, v[:-1] as the scalars with a 0 appended and v[1:] as a 0
-    followed by the scalars, each as per-shard partial MSMs added across the
+    Both MSMs run over the whole batch, v[:-1] as the scalars with a 0
+    appended and v[1:] as a 0 followed by the scalars (one lane more than
+    slicing the points, with a zero scalar). On a batch cut over a mesh
+    (shard/runtime.py) each is a per-shard partial MSM added across the
     shards: no shard needs a neighbour's points."""
-    if isinstance(pts, runtime.Sharded):
-        zero = np.zeros((scalars_raw.shape[0], 1), scalars_raw.dtype)
-        msm = lambda p, s: msm_public(ops, p, s, RLC_BITS)
-        return (runtime.reduce_over(ops, msm, pts, np.concatenate([scalars_raw, zero], axis=1)),
-                runtime.reduce_over(ops, msm, pts, np.concatenate([zero, scalars_raw], axis=1)))
-    head = PointVec({k: v[..., :-1] for k, v in pts.items()})
-    tail = PointVec({k: v[..., 1:] for k, v in pts.items()})
-    return msm_public(ops, head, scalars_raw, RLC_BITS), msm_public(ops, tail, scalars_raw, RLC_BITS)
+    zero = np.zeros((scalars_raw.shape[0], 1), scalars_raw.dtype)
+    msm = lambda p, s: msm_public(ops, p, s, RLC_BITS)
+    return (runtime.reduce_over(ops, msm, pts, np.concatenate([scalars_raw, zero], axis=1)),
+            runtime.reduce_over(ops, msm, pts, np.concatenate([zero, scalars_raw], axis=1)))
 
 
 def _power_pairs_finish(ops: CurveOps, handle):

@@ -9,8 +9,9 @@ These tests need an NVIDIA GPU and nvcc: they are marked `gpu`, decide inside
 the test whether a card is present, and skip without one. Also on the card:
 the streaming contribution (`phase2/chunked.py`) equal byte for byte to the
 same contribution on the CPU, and the device mesh over two entries of the
-card (`shard/mesh.py`) equal to the single-device results. Run them on the
-machine with the card:
+card (`shard/mesh.py`, and the runtime's mesh paths in a phase-1 ceremony
+and a streaming phase-2 contribution) equal to the single-device results.
+Run them on the machine with the card:
 
     python -m pytest tests/test_torch_phase2_gpu.py -q -m gpu
 """
@@ -29,14 +30,19 @@ from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for, glv_digits_plain
 from snark_setup_tpu_torch.ops.cuda_ladder import glv_ladder_plain
 from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops, plain_group_law
 from snark_setup_tpu_torch.ops.msm import msm_secret
+from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+from snark_setup_tpu_torch.phase1.protocol import Phase1
+from snark_setup_tpu_torch.phase1.testing import generate_output, setup_verify
 from snark_setup_tpu_torch.phase2 import chunked
 from snark_setup_tpu_torch.phase2.keypair import Keypair, Phase2PublicKey
 from snark_setup_tpu_torch.phase2.parameters import MPCParameters, ProvingKey, VerifyingKey
 from snark_setup_tpu_torch.phase2.polynomial import dot_product_vec, process_matrix
 from snark_setup_tpu_torch.phase2.r1cs import TestCircuit, TestParallelCircuit, circuit_to_qap
+from snark_setup_tpu_torch.shard import mesh as mesh_mod
+from snark_setup_tpu_torch.shard import runtime
 from snark_setup_tpu_torch.shard.mesh import make_mesh, sharded_group_ifft_fn, sharded_step_fn
 from snark_setup_tpu_torch.transcript.hashing import derive_rng_from_seed
-from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
+from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, SubgroupCheckMode, UseCompression
 
 GROUPS = [("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g2")]
 
@@ -239,3 +245,52 @@ def test_sharded_group_ifft_on_a_mesh_of_the_card_equals_one_device(n):
         pts = _oracle(ops, [rnd.randrange(1, ops.spec.r) for _ in range(n)], dev)
         want = GroupFFT(ops, Radix2Domain("bw6_761", n)).ifft(pts)
         assert _equal(sharded_group_ifft_fn("bw6_761", "g1", n, make_mesh(devices=[dev, dev]))(pts), want)
+
+
+def _mesh_run(dev):
+    """A phase-1 contribution on BLS12-377 (power 3: 15 tau_g1 powers in
+    batches of 4, the last ragged), its verification with the Direct and the
+    Batched subgroup checks, and a streaming phase-2 contribution at 33
+    points: the response, both new challenges, and the phase-2 hash and
+    bytes."""
+    params = Phase1Parameters.new_full("bls12_377", ProvingSystem.GROTH16, 3, 4)
+    inp, out, pubkey, _, digest = setup_verify(UseCompression.NO, CheckForCorrectness.NO, UseCompression.YES,
+                                               params, device=dev)
+    news = []
+    for mode in (SubgroupCheckMode.DIRECT, SubgroupCheckMode.BATCHED):
+        new_challenge = generate_output(params, UseCompression.NO)
+        Phase1.verification(inp, out, new_challenge, pubkey, digest, UseCompression.NO, UseCompression.YES,
+                            UseCompression.NO, CheckForCorrectness.NO, CheckForCorrectness.FULL, mode, True,
+                            params, rlc_rng=random.Random(7), device=dev)
+        news.append(bytes(new_challenge))
+    spec = get_curve("bls12_377")
+    data = _mpc_file("bls12_377", 33, UseCompression.YES) + bytes(Phase2PublicKey.size(spec))
+    return bytes(out), news, _chunked_on(dev, data, 16, UseCompression.YES)
+
+
+@pytest.mark.gpu
+def test_runtime_on_a_mesh_of_the_card_equals_one_device(monkeypatch):
+    """The runtime's mesh paths as a multi-card host runs them, over two
+    entries of the one card: `scalar_mul` per shard (phase-1 contribute and
+    chunked.contribute), and `put_points`, `all_over`, `reduce_over` and
+    `gather` in phase-1 verification. The same bytes as on one device."""
+    dev = _card()
+    runtime.reset_mesh_cache()
+    try:
+        single = _mesh_run(dev)
+        calls = {"shard_points": 0, "sharded_batch_exp_fn": 0, "reduce_partials": 0}
+        for name in calls:
+            orig = getattr(mesh_mod, name)
+
+            def counted(*a, _orig=orig, _name=name, **k):
+                calls[_name] += 1
+                return _orig(*a, **k)
+
+            monkeypatch.setattr(mesh_mod, name, counted)
+        runtime._mesh_cache["cuda"] = make_mesh(devices=[dev, dev])
+        assert runtime.mesh_size(dev) == 2
+        meshed = _mesh_run(dev)
+    finally:
+        runtime.reset_mesh_cache()
+    assert all(calls.values()), calls
+    assert meshed == single

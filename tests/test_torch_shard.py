@@ -15,7 +15,10 @@ code with the plain versions:
   subgroup checks, RLC power pairs as per-shard MSMs): the response and the new
   challenge byte-identical with and without the mesh (the single-device
   bytes are the ones tests/test_torch_contribute.py and
-  tests/test_torch_verify.py hold to the JAX package).
+  tests/test_torch_verify.py hold to the JAX package);
+- the same verification over the mesh rejecting a response with two tau_g1
+  powers swapped, and its subgroup check rejecting an out-of-subgroup
+  point, with the exception class and message one device raises.
 Exact equality throughout (tolerance 0)."""
 
 import random
@@ -24,17 +27,26 @@ import numpy as np
 import pytest
 import torch
 
-from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
+from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch, limbs_to_int
 from snark_setup_tpu_torch.ntt.group_fft import group_fft
 from snark_setup_tpu_torch.ops.curve import curve_ops
+from snark_setup_tpu_torch.ops.msm import rlc_scalars_padded
+from snark_setup_tpu_torch.phase1.buffers import split
 from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
-from snark_setup_tpu_torch.phase1.protocol import Phase1, _batched_subgroup_sums
+from snark_setup_tpu_torch.ops.codec import batch_codec
+from snark_setup_tpu_torch.phase1.protocol import (
+    Phase1,
+    _batched_subgroup_sums,
+    _check_subgroup_device,
+    _power_pairs_device,
+)
 from snark_setup_tpu_torch.phase1.testing import generate_output, setup_verify
 from snark_setup_tpu_torch.shard import runtime
 from snark_setup_tpu_torch.shard.mesh import (
     Mesh,
     Sharded,
     make_mesh,
+    shard_points,
     sharded_batch_exp_fn,
     sharded_group_ifft_fn,
     sharded_msm_fn,
@@ -110,14 +122,23 @@ def test_sharded_group_ifft_matches_single_device(n, shards):
 
 
 def test_sharded_subset_sums_and_pairs_equal_single_device(mesh):
-    """The runtime's cross-shard reductions: the subset sums of the batched
-    subgroup check and a public-scalar MSM equal the single-device sums."""
+    """The runtime's cross-shard reductions on a ragged batch (9 points,
+    padded to 16): the subset sums of the batched subgroup check equal the
+    single-device sums, and the RLC power pairs (two public-scalar MSMs,
+    sum s_i v_i and sum s_i v_(i+1)) equal the host oracle with and without
+    the mesh."""
     ops, base, pts, ks, sc = _example(9)
+    hc = ops.host_curve
     bits = np.random.default_rng(3).integers(0, 2, (5, 9)).astype(bool)
     single = _batched_subgroup_sums(ops, pts, bits)
     sharded = runtime.reduce_over(ops, lambda p, b: _batched_subgroup_sums(ops, p, b),
-                                  runtime._mesh.shard_points(mesh, ops, pts), bits)
+                                  shard_points(mesh, ops, pts), bits)
     assert ops.to_affine_host(sharded) == ops.to_affine_host(single)
+    scalars = rlc_scalars_padded(8, 8, rng=random.Random(5))
+    s = [limbs_to_int(scalars[:, i]) for i in range(8)]
+    want = (_host_msm(hc, base[:-1], s), _host_msm(hc, base[1:], s))
+    assert _power_pairs_device(ops, pts, scalars) == want
+    assert _power_pairs_device(ops, shard_points(mesh, ops, pts), scalars) == want
 
 
 @pytest.fixture
@@ -175,23 +196,38 @@ def test_mesh_policy(monkeypatch):
     runtime.reset_mesh_cache()
 
 
-def _ceremony(mode: SubgroupCheckMode):
-    """Seeded contribute + verify on the CPU; returns (response bytes, new
-    challenge)."""
+def _contribution():
+    """A seeded contribution on the CPU: (parameters, input, response, public
+    key, digest)."""
     params = Phase1Parameters.new_full("bls12_377", ProvingSystem.GROTH16, POWER, BATCH)
     inp, out, pubkey, _, digest = setup_verify(UseCompression.NO, CheckForCorrectness.NO, UseCompression.YES,
                                                params, device=CPU)
+    return params, inp, bytes(out), pubkey, digest
+
+
+def _verify(t, out: bytes, mode: SubgroupCheckMode) -> bytes:
+    """Verify `out` as the response to t's input; returns the new challenge."""
+    params, inp, _, pubkey, digest = t
     new_challenge = generate_output(params, UseCompression.NO)
-    Phase1.verification(inp, out, new_challenge, pubkey, digest, UseCompression.NO, UseCompression.YES,
+    Phase1.verification(inp, bytearray(out), new_challenge, pubkey, digest, UseCompression.NO, UseCompression.YES,
                         UseCompression.NO, CheckForCorrectness.NO, CheckForCorrectness.FULL, mode, True, params,
                         rlc_rng=random.Random(7), device=CPU)
-    return bytes(out), bytes(new_challenge)
+    return bytes(new_challenge)
+
+
+def _ceremony(mode: SubgroupCheckMode):
+    """Seeded contribute + verify on the CPU; returns (response bytes, new
+    challenge)."""
+    t = _contribution()
+    return t[2], _verify(t, t[2], mode)
 
 
 @pytest.fixture(scope="module")
 def single_device():
+    """The contribution and its verification on one device."""
     runtime.reset_mesh_cache()
-    return _ceremony(SubgroupCheckMode.AUTO)
+    t = _contribution()
+    return t, (t[2], _verify(t, t[2], SubgroupCheckMode.AUTO))
 
 
 @pytest.mark.parametrize("mode", ["AUTO", "BATCHED"])
@@ -200,5 +236,71 @@ def test_sharded_ceremony_bytes_identical(single_device, sharded_env, mode):
     Batched subgroup check: the same response and new challenge."""
     assert runtime.active_mesh(CPU).size == N_DEV
     sharded = _ceremony(SubgroupCheckMode[mode])
-    assert sharded[0] == single_device[0], "response bytes differ under sharding"
-    assert sharded[1] == single_device[1], "new challenge differs under sharding"
+    assert sharded[0] == single_device[1][0], "response bytes differ under sharding"
+    assert sharded[1] == single_device[1][1], "new challenge differs under sharding"
+
+
+def _out_of_subgroup(spec, hc):
+    """The smallest-x G1 point outside the order-r subgroup and not of
+    order 2."""
+    for x in range(1, 2000):
+        p = hc.get_point_from_x(spec.fp(x), greatest=False)
+        if p is not None and not p.y.is_zero() and not hc.in_subgroup(p):
+            return p
+    raise AssertionError("no out-of-subgroup point found")
+
+
+def _raised(fn):
+    try:
+        fn()
+    except Exception as e:  # class and message are what the two runs must agree on
+        return type(e).__name__, str(e)
+    raise AssertionError("accepted")
+
+
+def test_sharded_verification_rejects_like_single_device(single_device, monkeypatch):
+    """A response with tau_g1[2] and [3] swapped (in the first batch) is
+    rejected over the mesh of 8 (per-shard RLC MSMs reduced across the
+    shards) with the same exception class and message as on one device."""
+    t = single_device[0]
+    params, out = t[0], bytearray(t[2])
+    sec = split(params, UseCompression.YES)["tau_g1"]
+    a, b = bytes(sec.slice_of(out, 2, 3)), bytes(sec.slice_of(out, 3, 4))
+    sec.slice_of(out, 2, 3)[:], sec.slice_of(out, 3, 4)[:] = b, a
+    runtime.reset_mesh_cache()
+    one = _raised(lambda: _verify(t, bytes(out), SubgroupCheckMode.AUTO))
+    monkeypatch.setenv("SNARK_SETUP_SHARD", "1")
+    monkeypatch.setenv("SNARK_SETUP_SHARD_DEVICES", str(N_DEV))
+    runtime.reset_mesh_cache()
+    try:
+        assert runtime.active_mesh(CPU).size == N_DEV
+        meshed = _raised(lambda: _verify(t, bytes(out), SubgroupCheckMode.AUTO))
+    finally:
+        monkeypatch.delenv("SNARK_SETUP_SHARD")
+        monkeypatch.delenv("SNARK_SETUP_SHARD_DEVICES")
+        runtime.reset_mesh_cache()
+    assert one == ("InvalidRatioError", "invalid ratio: Power pairs tau_g1"), one
+    assert meshed == one
+
+
+@pytest.mark.parametrize("mode", ["DIRECT", "BATCHED"])
+def test_sharded_subgroup_check_rejects_like_single_device(mesh, mode):
+    """verification's subgroup check on a ragged batch of 9 points cut over
+    the mesh of 8 (`all_over` of the Direct masks, or subset sums reduced
+    across the shards): an out-of-subgroup point in the sixth shard raises
+    what one device raises, and the subgroup points alone pass."""
+    codec = batch_codec("bls12_377", "g1", CPU)
+    ops = codec.ops
+    hc = ops.host_curve
+    good = [hc.mul(hc.generator, 5 + i) for i in range(9)]
+    bad = good[:5] + [_out_of_subgroup(ops.spec, hc)] + good[6:]
+    for pts, want in ((bad, ("IncorrectSubgroupError", None)), (good, None)):
+        single = ops.from_affine_host(pts, CPU)
+        check = lambda p: _check_subgroup_device(codec, p, SubgroupCheckMode[mode], 9)
+        if want is None:
+            check(single)
+            check(shard_points(mesh, ops, single))
+            continue
+        one = _raised(lambda: check(single))
+        assert one[0] == want[0], one
+        assert _raised(lambda: check(shard_points(mesh, ops, single))) == one
