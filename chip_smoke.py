@@ -27,7 +27,9 @@ summed from its launch events, as on the contribute and route paths; under
 SNARK_SETUP_MXU_STACKED also the seconds of the float64 reduction after
 K6, from events around each reduction). Each path runs with every kernel's launch count set to 0
 just before it and read just after; every kernel must have launched on its
-path, and no plain version may have run there.
+path, and no plain version may have run there. K5 also runs as one Fq
+product a launch in the decompression square root's chains: its rows at
+that shape (S = G = 1) belong to the BW6-761 and BLS12-377 verify paths.
 
 Each phase prints one JSON line. Near the end it prints one
 `{"kernels": [...]}` line with, per kernel and configuration: the launches
@@ -153,6 +155,12 @@ STACKED = (
     ("mnt4_753", "g2", "Fp2 add round 1, a != 0 (largest weights: 3 x 14)", A_NONZERO_ROUND1),
     ("mnt6_753", "g2", "Fp3 add round 0", ID6),
     ("mnt6_753", "g2", "Fp3 add round 2 (pairwise merge)", PAIRS),
+)
+# K5 as one Fq product a launch: the decompression square root's chains
+# (ops/codec.py: ExtSqrt), on the verify path that decompresses that field
+SQRT_STACKED = (
+    ("bw6_761", "g1", "Fq product (square root, S=G=1)", ((1,),), "bw6_761 verify"),
+    ("bls12_377", "g1", "Fq product (square root, S=G=1)", ((1,),), "bls12_377 verify"),
 )
 # the opt-in routes' kernels: K6 and K7 at every K5 shape above; K8 only
 # where v2_supported holds (degree-1 rounds with small weight sums)
@@ -433,7 +441,7 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
     from snark_setup_tpu_torch.ops.curve import curve_ops
 
     rows = []
-    for ci, (curve, group, label, weights) in enumerate(STACKED):
+    for ci, (curve, group, label, weights, *path) in enumerate(STACKED + SQRT_STACKED):
         F = curve_ops(curve, group).field
         fq = F.fp
         K = stacked_mul_for(fq.modulus)
@@ -471,7 +479,7 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "batch": batch, "shape": {"S": len(comp[0]), "G": len(comp), "SU": SU,
                                       "max_weight_sum": max(sum(g) for g in comp)},
-            "_wrapper": K, "_path": curve, "_label": f"stacked_mul[{curve}]",
+            "_wrapper": K, "_path": path[0] if path else curve, "_label": f"stacked_mul[{curve}]",
         })
         emit({"phase": "kernels", "config": f"stacked_mul {curve} {label}", "batch": batch,
               "ragged_batch": RAGGED, "edge_values": [0, 1, "N-1"], "equal": True,
@@ -1518,7 +1526,7 @@ def phase2_breakdown_targets() -> dict:
         "reads: read_batch (host parse + to Montgomery [+ sqrt, checks])": (BatchPointCodec, "read_batch"),
         "write-back: write_batch_start (normalize + from_mont + flags + copy)": (BatchPointCodec,
                                                                                  "write_batch_start"),
-        "of write-back: normalize (inversion tree + Fermat inversion)": (CurveOps, "normalize"),
+        "of write-back: normalize (inversion tree + host inversion of its root)": (CurveOps, "normalize"),
         "host conversion: write_batch_finish (byte packing)": (BatchPointCodec, "write_batch_finish"),
         "host conversion: from_affine_host": (CurveOps, "from_affine_host"),
         "host conversion: to_affine_host (host Z inversion)": (CurveOps, "to_affine_host"),
@@ -2000,7 +2008,7 @@ def verify_breakdown_phase(dev, power: int, batch: int, workdir: str) -> None:
         stages[name] = time.perf_counter() - t0
         return out
 
-    pts = timed("read_batch: host parse + decompression (sqrt, plain torch)",
+    pts = timed("read_batch: host parse + decompression (sqrt on K5)",
                 lambda: codec.read_batch(data, UseCompression.YES, CheckForCorrectness.ONLY_NON_ZERO))
     bits = (np.frombuffer(np.random.default_rng(SEED + 710).bytes(SUBGROUP_BATCH_ROUNDS * n), np.uint8)
             .reshape(SUBGROUP_BATCH_ROUNDS, n) & 1).astype(bool)
@@ -2056,8 +2064,8 @@ def breakdown_phase(dev, batch: int) -> None:
     h = timed("write_batch_start: normalize + from_mont + sign flags + device->host copy (plain torch)",
               lambda: codec.write_batch_start(prod))
     timed("write_batch_finish: host byte packing", lambda: codec.write_batch_finish(h, UseCompression.YES))
-    timed("of write_batch_start: normalize = inversion tree + Fermat inversion", lambda: ops.normalize(prod))
-    timed("of normalize: Fermat inversion alone, width 1", lambda: ops.fq.inv(prod["z"][:, :1]))
+    timed("of write_batch_start: normalize = inversion tree + host inversion of its root", lambda: ops.normalize(prod))
+    timed("of normalize: the root's inversion alone (host), width 1", lambda: ops.fq.inv(prod["z"][:, :1]))
 
     # how many PyTorch operators one width-1 field product dispatches: the
     # unit the inversion's chain of products pays per step
@@ -2137,7 +2145,7 @@ def g2_breakdown_phase(dev, batch: int) -> None:
     loop_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
     loop_launches = K.launches - n0
     K.events = []
-    timed("normalize: inversion tree (K5 products) + Fermat inversion (plain torch)", lambda: ops.normalize(prod))
+    timed("normalize: inversion tree (K5 products) + host inversion of its root", lambda: ops.normalize(prod))
     norm_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
     K.events = None
     h = timed("write_batch_start: normalize + from_mont + sign flags + device->host copy",

@@ -177,27 +177,21 @@ class CurveOps:
         )
 
     def to_affine_host(self, p: PointVec) -> list[AffinePoint]:
-        """Device batch -> host affine points. The coordinates leave
-        Montgomery form on the device (one product each) and Z is inverted
-        with host field arithmetic: the output is host points either way,
-        and the device's Fermat inversion is ~1100 dependent products of
-        the plain field layer. A Z of one (every decoded point has it) needs
-        no inversion."""
+        """Device batch -> host affine points. Unless every Z is one or
+        zero (every decoded point's is), the batch is normalised on the
+        device first (`normalize`: one batched inversion); the coordinates
+        leave Montgomery form on the device (one product each)."""
         one = (1,) + (0,) * (self.field.degree - 1)
 
         def host(v):  # standard-form coefficients -> a host field element
             return self.spec.fp(v[0]) if self.field.degree == 1 else self.spec.g2_field(v)
 
-        out = []
-        for x, y, z in zip(*(self._std_to_coeffs(self.fq.from_mont(p[k])) for k in ("x", "y", "z"))):
-            if z == one:
-                out.append(AffinePoint(host(x), host(y)))
-            elif not any(z):
-                out.append(INFINITY)
-            else:
-                z_inv = host(z).inverse()
-                out.append(AffinePoint(host(x) * z_inv, host(y) * z_inv))
-        return out
+        zs = self._std_to_coeffs(self.fq.from_mont(p["z"]))
+        x, y = p["x"], p["y"]
+        if not all(z == one or not any(z) for z in zs):
+            x, y, _ = self.normalize(p)
+        xs, ys = (self._std_to_coeffs(self.fq.from_mont(v)) for v in (x, y))
+        return [AffinePoint(host(x), host(y)) if any(z) else INFINITY for x, y, z in zip(xs, ys, zs)]
 
     def _std_to_coeffs(self, arr: torch.Tensor) -> list[tuple]:
         """Standard-form limb planes (L[, d], B) -> list of int tuples."""

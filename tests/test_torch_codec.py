@@ -137,3 +137,24 @@ def test_checks_for_correctness():
     unc[0] ^= 1  # x off by one: off the curve
     with pytest.raises(SerializationError, match="not on curve"):
         codec.read_batch(bytes(unc), UseCompression.NO, CheckForCorrectness.ONLY_IN_GROUP)
+
+
+
+@pytest.mark.parametrize("curve,group", GROUPS)
+def test_square_root_chain_runs_on_the_stacked_product(curve, group):
+    """Decompression's square root multiplies through the field's
+    stacked-product route in every field, Fq included (on a CPU tensor:
+    K5's counted plain version): the root of y^2 squares back to it, and a
+    non-residue times y^2 is flagged as no square."""
+    codec, host, pts = _setup(curve, group, with_infinity=False)
+    F = codec.F
+    K = F.product.k5
+    pv = codec.read_batch(b"".join(host.serialize(p, UseCompression.NO) for p in pts), UseCompression.NO)
+    rhs = codec.rhs(pv["x"])
+    before = K.plain_calls
+    r, ok = codec.sqrter.sqrt(rhs)
+    assert K.plain_calls > before
+    assert bool(ok.all()) and bool(F.eq(F.mul(r, r), rhs).all())
+    z = F.const(("test non-residue", curve, group), F.from_coeffs([codec.sqrter.z_coeffs]), rhs)
+    _, ok = codec.sqrter.sqrt(F.mul(rhs, z.expand_as(rhs)))
+    assert not bool(ok.any())
