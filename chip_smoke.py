@@ -13,7 +13,13 @@ BW6-761 (plus the batch scalar-mul on BLS12-377 G1 and BW6-761 G1), on
 BLS12-377 (the CLI's default curve), on MNT4-753 and on MNT6-753, then the
 coordinator's side: `verify-and-transform-pok-and-correctness` and
 `verify-and-transform-ratios` on the BW6-761 contribution (plus three bad
-responses that must be rejected by the named check) and on a BLS12-377 one —
+responses that must be rejected by the named check) and on a BLS12-377 one;
+then BLS12-381 at BLS_VERIFY_POWER and full batch width: the `bls12_381`
+path contributes (K3 on both groups — the curve's own digits library,
+`glv_digits_bls12_381` —, K4 on G1, K5 rounds for G2 over Fp2) and the
+`bls12_381 verify` path verifies that response (K2 on G1; K5 for G2, the
+subgroup checks and the square root at S = G = 1) and rejects a `swap` and
+an `out_of_subgroup` response (the G1 cofactor gives the point) —
 and checks the results against the host oracle (Python-int curve arithmetic
 and the host codec). Then the stacked product's three opt-in routes: the
 BLS12-377 verify path's power-13 contribution again under
@@ -22,7 +28,8 @@ the matrix-product reduction), the
 MNT4-753 one under SNARK_SETUP_KERNEL_V2 (K8 where its bounds hold, K5
 elsewhere), each response byte-identical to the default route's from the
 same challenge and seed, and the batch scalar-mul under the routes at the
-other limb count (host-oracle spot checks; the seconds inside each kernel
+other limb count (ROUTE_SCALAR_MUL_BATCH lanes, 4096; host-oracle spot
+checks; the seconds inside each kernel
 summed from its launch events, as on the contribute and route paths; under
 SNARK_SETUP_MXU_STACKED also the seconds of the float64 reduction after
 K6, from events around each reduction). Each path runs with every kernel's launch count set to 0
@@ -75,17 +82,27 @@ side: chunked verification (two chunks), `combine` (Phase1.aggregation),
 its decompression (Phase1.decompress) and Marlin verification, each
 file checked against the host codec's decoding of its source and the hash
 chain.
-Then phase 2 on BW6-761, from the `bw6_761 verify` path's verified power-16
-new challenge, through the port's phase-2 CLIs (`circuit_main`,
-`prepare_phase2_main`, `phase2_main`; `phase2_phase`): the SHA-256 preimage
-circuit at domain 2^16 (prepare, `new` in two chunks, two participants per
-chunk contributing and verifying, a bad response rejected by the L ratio
-check, `combine`; Lagrange-sum, h-query and hash-chain checks), then the
-prover gate on the x^2 circuit (a proof from the combined parameters
-verifies, one for a wrong input does not). K2, K3 and K4 of both BW6-761
-groups must launch there (their rows' `phase2_launches`); one JSON line per
-CLI step (wall and kernel seconds) and a breakdown line each for prepare and
-`new`. Then the streaming phase 2 (`phase2/chunked.py`: contribute in place
+Then phase 2 through the port's phase-2 CLIs (`circuit_main`,
+`prepare_phase2_main`, `phase2_main`; `phase2_phase(dev, curve, ...)`, one
+function for any curve, from the verified new challenge of that curve's
+verify path): on BW6-761, from the `bw6_761 verify` path's power-16
+challenge, the SHA-256 preimage circuit at domain 2^16 (prepare, `new` in
+two chunks, one participant contributing to and verifying each (a second
+one took ~30 s more on the H100), a bad response rejected by the L
+ratio check, `combine`; Lagrange-sum, h-query and hash-chain checks), then
+the prover gate on the x^2 circuit (a proof from the combined parameters
+verifies, one for a wrong input does not); on BLS12-377, the phase-2 CLI's
+default curve, the `bls12_377 phase2` path: the prover gate from the
+`bls12_377 verify` path's power-13 challenge, with the L ratio rejection
+(the SHA-256 chain on BLS12-377, two participants a chunk, with the
+power-16 verification it starts from took 317.5 s on the H100, over the
+120 s this script can give it:
+`tests/test_torch_phase2_gpu.py::test_bls12_377_sha256_chain_on_the_card`
+runs it). K2, K3 and K4 of both
+BW6-761 groups must launch on the BW6-761 phase-2 paths, K3 + K4 and K2 on
+G1, K3 on G2 and K5 on the BLS12-377 one (the rows' `phase2_launches`); one
+JSON line per CLI step (wall and kernel seconds) and a breakdown line each
+for prepare and `new`. Then the streaming phase 2 (`phase2/chunked.py`: contribute in place
 and verify over raw buffers, on the SHA-256 path's chunk 0 and combined
 file; K3 + K4 and K2 on BW6-761 G1, one line a step with a host breakdown),
 the device mesh (`shard/mesh.py`) over two entries of the one card (the
@@ -102,7 +119,8 @@ a launch fills the card at the batch sizes a ceremony uses).
 BW6-761 verify path and the phase-1 transcript of the phase-2 paths
 (default 16; below 16 the SHA-256 circuit's path is skipped); the MNT
 phases run at MNT_POWER (13), half a batch per G2 section, the BLS12-377
-verify path and the BLS12-377 route paths at BLS_VERIFY_POWER (13).
+and BLS12-381 verify paths (and so the BLS12-377 phase-2 path) and the
+BLS12-377 route paths at BLS_VERIFY_POWER (13).
 
 Any failed build, launch, comparison or oracle check raises: the script then
 exits non-zero without printing the result lines. Without a CUDA device it
@@ -135,13 +153,19 @@ BLS_VERIFY_POWER = 13  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds) a
 MODES_POWER = 12  # the BLS12-377 beacon, chunked and Marlin contributions
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
 PHASE2_CHUNK = 1 << 15  # `phase2 new --chunk-size` on the SHA-256 circuit: 2 chunks of its 2^16 h query
-PHASE2_PATHS = ("bw6_761 phase2", "bw6_761 prover")
+PHASE2_PATHS = ("bw6_761 phase2", "bw6_761 prover", "bls12_377 phase2")
 CHUNKED_PATH = "bw6_761 phase2 chunked"  # the streaming phase 2 on the SHA-256 path's files
 MESH_IFFT_POINTS = 1 << 14  # the sharded inverse FFT of the mesh path (BW6-761 G1)
 PHASE2_KERNELS = tuple(f"{k}[bw6_761/{g}]" for g in ("g1", "g2")
                        for k in ("glv_digits", "glv_ladder", "group_add"))  # must launch on the phase-2 paths
-CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"))  # K2, K3, K4
-DIGITS_ONLY = (("bls12_377", "g2"),)  # K3 feeds the ladder over the group law there
+# BLS12-377's phase 2: K3 + K4 and K2 on G1, K3 on G2 (its ladder over the
+# group law on K5 rounds over Fp2)
+BLS_PHASE2_KERNELS = ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "group_add[bls12_377/g1]",
+                      "glv_digits[bls12_377/g2]", "stacked_mul[bls12_377]")
+CONFIGS = (("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_377", "g1"), ("bls12_381", "g1"))  # K2, K3, K4
+# the path whose launches a configuration's K3 / K4 rows count (K2's: "<curve> verify")
+KERNEL_PATHS = {"bls12_381": "bls12_381"}
+DIGITS_ONLY = (("bls12_377", "g2"), ("bls12_381", "g2"))  # K3 feeds the ladder over the group law there
 # the stacked-product kernel K5 at the main paths' shapes: (curve, group whose
 # coordinate field it multiplies in, round, curve-level weights)
 A_NONZERO_ROUND1 = ((1, 1, 0, 0, 0, 0), (0, 0, 1, 1, 1, 0), (0, 0, 0, 0, 0, 1))
@@ -161,6 +185,12 @@ STACKED = (
 SQRT_STACKED = (
     ("bw6_761", "g1", "Fq product (square root, S=G=1)", ((1,),), "bw6_761 verify"),
     ("bls12_377", "g1", "Fq product (square root, S=G=1)", ((1,),), "bls12_377 verify"),
+)
+# K5 on the BLS12-381 modulus: its G2 ladder's Fp2 rounds (contribution) and
+# its square root's Fq products (verification), with the path of each
+BLS12_381_STACKED = (
+    ("bls12_381", "g2", "Fp2 add round 0", ID6, "bls12_381"),
+    ("bls12_381", "g1", "Fq product (square root, S=G=1)", ((1,),), "bls12_381 verify"),
 )
 # the opt-in routes' kernels: K6 and K7 at every K5 shape above; K8 only
 # where v2_supported holds (degree-1 rounds with small weight sums)
@@ -244,8 +274,9 @@ def max_abs_diff(a, b) -> int:
 
 def make_inputs(ops, B: int, rng, dev, edge: bool, projective: bool):
     """Seeded inputs for one (curve, group): (points, raw scalars, scalar
-    ints, affine host points per lane). With `edge`, lanes 0..2 carry the
-    scalars 0, 1, r-1 and lanes 5, 21, ... the point at infinity."""
+    ints, affine host points per lane). With `edge`, lanes 0..4 carry the
+    scalars 0, 1, r-1, lambda and r-lambda (where the group has GLV) and
+    lanes 5, 21, ... the point at infinity."""
     import numpy as np
     import torch
 
@@ -261,6 +292,8 @@ def make_inputs(ops, B: int, rng, dev, edge: bool, projective: bool):
     affine16 = [hc.mul(hc.generator, 3 + 5 * i) for i in range(16)]
     if edge:
         ks[0], ks[1], ks[2] = 0, 1, r - 1
+        if ops.glv is not None:  # the eigenvalue: k1 = 0, k2 = +-1
+            ks[3], ks[4] = ops.glv.p.lam, r - ops.glv.p.lam
         affine16[5] = INFINITY
     scalars = ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev)
     p16 = ops.from_affine_host(affine16, dev)
@@ -367,7 +400,8 @@ def compare_kernels(dev, batch: int) -> list[dict]:
                 "bound_by": b_by, "library_ms": None, "batch": batch,
                 **({"geometry": wrapper.geometry, "call_ms": times["digits_call"]} if key == "digits"
                    else {"team": wrapper.team}),
-                "_wrapper": wrapper, "_path": "bw6_761", "_label": f"{name}[{curve}/{group}]",
+                "_wrapper": wrapper, "_path": KERNEL_PATHS.get(curve, "bw6_761"),
+                "_label": f"{name}[{curve}/{group}]",
             })
         emit({"phase": "kernels", "config": f"{curve}/{group}", "batch": batch,
               "ragged_batch": RAGGED, "equal": True,
@@ -441,7 +475,7 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
     from snark_setup_tpu_torch.ops.curve import curve_ops
 
     rows = []
-    for ci, (curve, group, label, weights, *path) in enumerate(STACKED + SQRT_STACKED):
+    for ci, (curve, group, label, weights, *path) in enumerate(STACKED + SQRT_STACKED + BLS12_381_STACKED):
         F = curve_ops(curve, group).field
         fq = F.fp
         K = stacked_mul_for(fq.modulus)
@@ -1007,6 +1041,11 @@ def route_phase(dev, curve: str, power: int, batch: int, switch: str, default_di
           "reduction_ms": red_ms, "reduction_seconds_total": sum(red_ms.values()) / 1e3})
 
 
+# lanes of the route scalar-muls: 16384 before the BLS12-381 and BLS12-377
+# phase-2 paths joined the script; the MXU route's float64 reduction after
+# K6 takes ~29 s of that path at 16384 lanes (the kernels' own rows are
+# timed at BATCH in compare_routes)
+ROUTE_SCALAR_MUL_BATCH = 4096
 ROUTE_SCALAR_MULS = (  # (curve, group, route): the routes at the other limb count
     ("bls12_377", "g2", "k8"), ("mnt4_753", "g1", "k7"), ("mnt4_753", "g1", "k6"),
     ("mnt6_753", "g2", "k7"), ("mnt6_753", "g2", "k6"),
@@ -1533,17 +1572,20 @@ def phase2_breakdown_targets() -> dict:
     }
 
 
-def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part: str) -> None:
-    """The Groth16 phase-2 ceremony on BW6-761 through the port's CLIs, from
-    the verified power-`power` phase-1 challenge that the `bw6_761 verify`
-    path left in `bw6_dir` (new_challenge1), in the flow of
+def phase2_phase(dev, curve: str, power: int, batch: int, src_dir: str, wrappers: dict, part: str,
+                 reject_l: bool = True, participants: int = 1) -> None:
+    """The Groth16 phase-2 ceremony on `curve` through the port's CLIs, from
+    the verified power-`power` phase-1 challenge that the curve's verify
+    path left in `src_dir` (new_challenge1), in the flow of
     scripts/phase1_chunked_prepare_phase2.sh and scripts/phase2_chunked.sh.
 
     part "sha256": the SHA-256 preimage circuit (`circuit_main create
     --complex`: 43163 constraints, domain 2^16); prepare_phase2 at
-    --phase2-size 2^16, `new` in 2 chunks, per chunk two participants
-    contribute and verify, a response with one L point replaced by another
-    subgroup point is rejected by the L ratio check, `combine`. Checks: each
+    --phase2-size 2^16, `new` in 2 chunks, per chunk `participants` (1, or
+    2 in turns: the second verified against the first's new challenge)
+    contribute and verify, `combine`. With `reject_l`, a response to chunk 0
+    with one L point replaced by another subgroup point must be rejected by
+    the L ratio check (in either part). Checks: each
     .hash file is the Blake2b of its file; in the prepared transcript the
     Lagrange sums (one device sum_reduce each, compared on the host):
     sum coeffs_g1 = G1, sum coeffs_g2 = G2, sum alpha_coeffs_g1 = alpha G1,
@@ -1552,9 +1594,9 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
     contributions are the participants'.
 
     part "prover": the x^2 circuit, prepared from the same transcript at its
-    domain, new -> contribute -> verify -> combine -> `circuit_main test`
-    on combined.params; then a proof from those params verifies for the
-    true public input and not for a wrong one (host pairings).
+    domain, new -> contribute -> verify -> combine -> `circuit_main test` on
+    combined.params; then a proof from those params verifies for the true
+    public input and not for a wrong one (host pairings).
 
     One JSON line per CLI step (wall seconds, kernel seconds from each
     launch's events), a breakdown line for prepare and for new."""
@@ -1576,11 +1618,12 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
     from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
     from snark_setup_tpu_torch.utils.errors import InvalidRatioError
 
-    spec = get_curve("bw6_761")
+    spec = get_curve(curve)
+    kind = "bw6" if curve == "bw6_761" else curve  # the CLIs' --curve-kind
     h1, h2 = g1_codec(spec), g2_codec(spec)
     blake = lambda data: hashlib.blake2b(data, digest_size=64).digest()
-    phase1 = os.path.join(bw6_dir, "new_challenge1")
-    work = os.path.join(bw6_dir, f"phase2_{part}")
+    phase1 = os.path.join(src_dir, "new_challenge1")
+    work = os.path.join(src_dir, f"phase2_{part}")
     os.makedirs(work)
     path = lambda name: os.path.join(work, name)
 
@@ -1608,8 +1651,8 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
         for w in wrappers.values():
             w.events = None
         if rc not in (0, None):
-            raise AssertionError(f"phase2 {part}: {name} exited {rc}")
-        emit({"phase": "phase2", "part": part, "step": name, "wall_seconds": secs,
+            raise AssertionError(f"phase2 {curve} {part}: {name} exited {rc}")
+        emit({"phase": "phase2", "curve": curve, "part": part, "step": name, "wall_seconds": secs,
               "kernel_ms": {k: v for k, v in kernel_ms.items() if v},
               "kernel_seconds_total": sum(kernel_ms.values()) / 1e3})
         return kernel_ms, secs
@@ -1621,24 +1664,24 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
 
     # -- circuit, prepare ---------------------------------------------------
     complex_ = part == "sha256"
-    step("circuit create", circuit_main.main, "create", "--curve-kind", "bw6", *(["--complex"] if complex_ else []))
+    step("circuit create", circuit_main.main, "create", "--curve-kind", kind, *(["--complex"] if complex_ else []))
     from snark_setup_tpu_torch.phase2.load_circuit import Matrices
 
-    matrices = Matrices.read(spec, read("testcircuit_bw6"))
+    matrices = Matrices.read(spec, read(f"testcircuit_{kind}"))
     size = max(matrices.num_constraints, matrices.num_witness_variables + matrices.num_instance_variables)
-    m = Radix2Domain("bw6_761", size).size
+    m = Radix2Domain(curve, size).size
     if m > 1 << power:
-        raise AssertionError(f"phase2 {part}: domain {m} needs a phase-1 power of at least {m.bit_length()}")
+        raise AssertionError(f"phase2 {curve} {part}: domain {m} needs a phase-1 power of at least {m.bit_length()}")
     prep_stages = {}
     prep_kernels, prep_secs = step(
-        "prepare_phase2", prepare_phase2_main.main, "--curve-kind", "bw6", "--power", str(power),
+        "prepare_phase2", prepare_phase2_main.main, "--curve-kind", kind, "--power", str(power),
         "--batch-size", str(batch), "--phase2-size", str(m), "--phase2-fname", "phase2_transcript",
         "--response-fname", phase1, "--device", dev.type, stages=prep_stages)
-    emit({"phase": "breakdown", "config": f"bw6_761 prepare_phase2, domain {m}", "wall_seconds": prep_secs,
+    emit({"phase": "breakdown", "config": f"{curve} prepare_phase2, domain {m}", "wall_seconds": prep_secs,
           "seconds": prep_stages | {f"kernel {k}": v / 1e3 for k, v in prep_kernels.items() if v}})
 
     # -- the prepared transcript against the phase-1 one --------------------
-    p1 = Phase1Parameters.new_full("bw6_761", ProvingSystem.GROTH16, power, batch)
+    p1 = Phase1Parameters.new_full(curve, ProvingSystem.GROTH16, power, batch)
     s1 = split(p1, UseCompression.NO)
     with open(phase1, "rb") as f:
         ch = f.read()
@@ -1650,7 +1693,7 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
     off["beta_coeffs_g1"] = off["alpha_coeffs_g1"] + m * g1size
     off["h_g1"] = off["beta_coeffs_g1"] + m * g1size
     if len(pt) != off["h_g1"] + (m - 1) * g1size:
-        raise AssertionError(f"phase2 {part}: transcript length {len(pt)}")
+        raise AssertionError(f"phase2 {curve} {part}: transcript length {len(pt)}")
     one = lambda sec, i, codec: codec.deserialize(bytes(s1[sec].slice_of(ch, i, i + 1)), UseCompression.NO,
                                                    CheckForCorrectness.NO)
     G1, G2 = g1_curve(spec).generator, g2_curve(spec).generator
@@ -1658,22 +1701,22 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
               "beta_coeffs_g1": one("beta_g1", 0, h1)}
     sums = {}
     for name, want in expect.items():
-        codec = batch_codec("bw6_761", "g2" if name == "coeffs_g2" else "g1", dev)
+        codec = batch_codec(curve, "g2" if name == "coeffs_g2" else "g1", dev)
         esize = g2size if name == "coeffs_g2" else g1size
         pts = codec.read_batch(pt[off[name] : off[name] + m * esize], UseCompression.NO)
         got = codec.ops.to_affine_host(codec.ops.sum_reduce(pts))[0]
         if got != want:
-            raise AssertionError(f"phase2 {part}: the Lagrange sum of {name} is wrong")
+            raise AssertionError(f"phase2 {curve} {part}: the Lagrange sum of {name} is wrong")
         sums[name] = True
         if name == "coeffs_g1":
-            dom = Radix2Domain("bw6_761", m)
+            dom = Radix2Domain(curve, m)
             from snark_setup_tpu_torch.fields.limb import ints_to_limbs_batch
 
             powers = dom.elements()
             sc = codec.ops.fr.tensor(ints_to_limbs_batch(powers, codec.ops.fr.L).T, dev)
             got = codec.ops.to_affine_host(codec.ops.sum_reduce(codec.ops.scalar_mul(pts, sc)))[0]
             if got != one("tau_g1", 1, h1):
-                raise AssertionError(f"phase2 {part}: sum omega^j coeffs_g1[j] != tau G1")
+                raise AssertionError(f"phase2 {curve} {part}: sum omega^j coeffs_g1[j] != tau G1")
             sums["omega_weighted_coeffs_g1"] = True
     hc = g1_curve(spec)
     h_checked = []
@@ -1681,28 +1724,31 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
         h = h1.deserialize(pt[off["h_g1"] + i * g1size : off["h_g1"] + (i + 1) * g1size], UseCompression.NO,
                            CheckForCorrectness.NO)
         if h != hc.add(one("tau_g1", i + m, h1), hc.neg(one("tau_g1", i, h1))):
-            raise AssertionError(f"phase2 {part}: h_g1[{i}] != tau^(i+m) G1 - tau^i G1")
+            raise AssertionError(f"phase2 {curve} {part}: h_g1[{i}] != tau^(i+m) G1 - tau^i G1")
         h_checked.append(i)
 
     # -- new, contributions, verification, combine --------------------------
     chunk = PHASE2_CHUNK if complex_ else m
-    common = ["--curve-kind", "bw6", "--batch-size", str(batch), "--contribution-mode", "chunked",
+    common = ["--curve-kind", kind, "--batch-size", str(batch), "--contribution-mode", "chunked",
               "--chunk-size", str(chunk), "--device", dev.type]
     new_stages = {}
     new_kernels, new_secs = step(
         "new", p2, *common, "new", "--challenge-fname", "challenge", "--challenge-hash-fname",
         "challenge.verified.hash", "--challenge-list-fname", "new_challenge_list", "--phase1-fname",
-        "phase2_transcript", "--circuit-fname", "testcircuit_bw6", stages=new_stages)
-    emit({"phase": "breakdown", "config": f"bw6_761 phase2 new, domain {m}, chunk {chunk}",
+        "phase2_transcript", "--circuit-fname", f"testcircuit_{kind}", stages=new_stages)
+    emit({"phase": "breakdown", "config": f"{curve} phase2 new, domain {m}, chunk {chunk}",
           "wall_seconds": new_secs,
           "seconds": new_stages | {f"kernel {k}": v / 1e3 for k, v in new_kernels.items() if v}})
     hash_files = {"challenge.verified.hash": "challenge.full"}
     chunks = read("new_challenge_list").decode().split()
     responses = []
     for i, name in enumerate(chunks):
-        first, second = ("1", "2") if i % 2 == 0 else ("2", "1")
+        # every chunk takes the same contributions: one participant takes
+        # all chunks, two take them in either order
+        first, second = ("1", "2") if i % 2 == 0 or participants == 1 else ("2", "1")
         for who, chal, resp, ver in ((first, name, f"response_{i}", f"verified_{i}"),
-                                     (second, f"verified_{i}", f"new_response_{i}", f"verified2_{i}")):
+                                     (second, f"verified_{i}", f"new_response_{i}",
+                                      f"verified2_{i}"))[:participants]:
             step(f"contribute chunk {i} participant {who}", p2, *common, "--chunk-index", str(i), "--seed",
                  f"seed{who}", "contribute", "--challenge-fname", os.path.basename(chal),
                  "--challenge-hash-fname", f"{chal}.hash", "--response-fname", resp,
@@ -1713,8 +1759,8 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
                  "--new-challenge-fname", ver, "--new-challenge-hash-fname", f"{ver}.verified.hash")
             hash_files |= {f"{chal}.hash": chal, f"{resp}.hash": resp, f"{chal}.verified.hash": chal,
                            f"{resp}.verified.hash": resp, f"{ver}.verified.hash": ver}
-        responses.append(f"new_response_{i}")
-        if i == 0 and complex_:
+        responses.append(resp)
+        if i == 0 and reject_l:
             # one L point replaced by another subgroup point: the L ratio
             # check must reject the response
             bad = bytearray(read("response_0"))
@@ -1740,35 +1786,37 @@ def phase2_phase(dev, power: int, batch: int, bw6_dir: str, wrappers: dict, part
                      "--response-hash-fname", "bad.r.hash", "--new-challenge-hash-fname", "bad.n.hash")
             except InvalidRatioError as e:
                 if "L_query ratio check failed" not in str(e):
-                    raise AssertionError(f"phase2: bad response rejected by another check: {e}") from e
-                emit({"phase": "phase2", "part": part, "rejection": "L point replaced", "rejected": True,
+                    raise AssertionError(f"phase2 {curve}: bad response rejected by another check: {e}") from e
+                emit({"phase": "phase2", "curve": curve, "part": part, "rejection": "L point replaced",
+                      "rejected": True,
                       "cause": f"{type(e).__name__}: {e}", "seconds": time.perf_counter() - t0})
             else:
-                raise AssertionError("phase2: the bad response was accepted")
+                raise AssertionError(f"phase2 {curve}: the bad response was accepted")
     with open(path("response_list"), "w") as f:
         f.write("\n".join(responses) + "\n")
     step("combine", p2, *common, "combine", "--response-list-fname", "response_list", "--initial-query-fname",
          "challenge.query", "--initial-full-fname", "challenge.full", "--combined-fname", "combined")
     for hfile, target in hash_files.items():
         if read(hfile) != blake(read(target)):
-            raise AssertionError(f"phase2 {part}: {hfile} is not the Blake2b of {target}")
+            raise AssertionError(f"phase2 {curve} {part}: {hfile} is not the Blake2b of {target}")
     combined = read("combined")
-    if contribution_hashes(spec, combined, 2) != contribution_hashes(spec, read("new_response_0"), 2):
-        raise AssertionError(f"phase2 {part}: the combined contributions are not the participants'")
+    if contribution_hashes(spec, combined, participants) != contribution_hashes(spec, read(responses[0]),
+                                                                              participants):
+        raise AssertionError(f"phase2 {curve} {part}: the combined contributions are not the participants'")
 
-    result = {"phase": "phase2", "part": part, "domain": m, "constraints": matrices.num_constraints,
+    result = {"phase": "phase2", "curve": curve, "part": part, "domain": m, "constraints": matrices.num_constraints,
               "variables": matrices.num_instance_variables + matrices.num_witness_variables,
               "nnz": [matrices.a_num_non_zero, matrices.b_num_non_zero, matrices.c_num_non_zero],
               "chunks": len(chunks), "lagrange_sums_ok": sums, "h_checked": h_checked,
               "hash_files_ok": len(hash_files), "combined_contributions_ok": True}
     if not complex_:
-        step("circuit test (prove + verify)", circuit_main.main, "test", "--curve-kind", "bw6",
+        step("circuit test (prove + verify)", circuit_main.main, "test", "--curve-kind", kind,
              "--proving-key-path", "combined.params", "--device", dev.type)
         pk = ProvingKey.read(spec, Cursor(read("combined.params")), UseCompression.NO, CheckForCorrectness.NO,
                              device=dev)
         proof = groth16.prove(spec, pk, TestCircuit(5), derive_rng_from_seed(b"\x09" * 32), dev)
         if not groth16.verify(spec, pk.vk, proof, [25]) or groth16.verify(spec, pk.vk, proof, [26]):
-            raise AssertionError("phase2 prover: the proof is not accepted for 25 and rejected for 26")
+            raise AssertionError(f"phase2 {curve} prover: the proof is not accepted for 25 and rejected for 26")
         result |= {"proof_verifies": True, "wrong_input_rejected": True}
     emit(result)
 
@@ -1876,7 +1924,7 @@ def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
     combined = read("combined")
     hashes = step("verify (challenge.full -> combined)", lambda: chunked.verify(
         spec, read("challenge.full"), combined, batch, NO, FULL, device=dev), k2)
-    if hashes != contribution_hashes(spec, combined, 2):
+    if hashes != contribution_hashes(spec, combined, 1):  # the SHA-256 path's one participant
         raise AssertionError("phase2 chunked: the combined file's hash list is not combine's")
     emit({"phase": "phase2 chunked", "h_points": spans["h"].count, "l_points": spans["l"].count,
           "bytes_equal_object_api": True, "hash_equals_cli": True, "combined_hashes_equal": True, "steps": steps})
@@ -2221,10 +2269,12 @@ def main() -> int:
                 + compare_group_ops(dev, BATCH))
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
         wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
-        # the kernels of the phase-2 paths (both groups of BW6-761 on Fq):
-        # their kernel seconds are summed per CLI step
+        # the kernels of the phase-2 paths (both groups of BW6-761 on Fq;
+        # BLS12-377's G1 kernels and K3 + K5 for its G2): their kernel
+        # seconds are summed per CLI step
         phase2_wrappers = {r["_label"]: r["_wrapper"] for r in rows
                            if r["_label"].startswith(("glv_", "group_")) and "bw6_761" in r["_label"]}
+        bls_phase2_wrappers = {r["_label"]: r["_wrapper"] for r in rows if r["_label"] in BLS_PHASE2_KERNELS}
 
         def labelled(curve):
             """The wrappers whose kernels a contribution on `curve` launches."""
@@ -2235,7 +2285,8 @@ def main() -> int:
             """The wrappers of a verify path's rows (and of the `also` rows)."""
             return {r["_label"]: r["_wrapper"] for r in rows if r["_path"] in (path, *also)}
 
-        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "mnt4_753", "modes")}
+        dirs = {name: os.path.join(work, name) for name in ("bw6_761", "bls12_377", "bls12_381", "mnt4_753",
+                                                            "modes")}
         for d in dirs.values():
             os.makedirs(d)
         bw6_dir, bls_dir = dirs["bw6_761"], dirs["bls12_377"]
@@ -2256,6 +2307,12 @@ def main() -> int:
                 contribute_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, {}, picks=2, workdir=bls_dir),
                 verify_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, bls_dir, ("swap",),
                              on_path("bls12_377 verify", "bls12_377")))),
+            # BLS12-381 (K3 on both groups, K4 and K2 on G1, K5 for G2 over
+            # Fp2 and the square root): a contribution, then its verification
+            ("bls12_381", lambda: contribute_phase(dev, "bls12_381", BLS_VERIFY_POWER, BATCH, labelled("bls12_381"),
+                                                   picks=2, workdir=dirs["bls12_381"])),
+            ("bls12_381 verify", lambda: verify_phase(dev, "bls12_381", BLS_VERIFY_POWER, BATCH, dirs["bls12_381"],
+                                                      ("swap", "out_of_subgroup"), on_path("bls12_381 verify"))),
             # the opt-in routes: the default paths' challenges and seeds under
             # each switch, the response byte-identical to the default route's
             # (BLS12-377 at BLS_VERIFY_POWER, on the verify path's
@@ -2268,7 +2325,8 @@ def main() -> int:
             ("mnt4_753 v2", lambda: route_phase(dev, "mnt4_753", MNT_POWER, BATCH, ROUTES["k8"][0],
                                                 dirs["mnt4_753"], on_path("mnt4_753 v2", "mnt4_753"))),
             ("route scalar-muls", lambda: route_scalar_mul_phase(
-                dev, BATCH, {r["_label"]: r["_wrapper"] for r in rows}, mxu_reducers(("mnt4_753", "mnt6_753")))),
+                dev, ROUTE_SCALAR_MUL_BATCH, {r["_label"]: r["_wrapper"] for r in rows},
+                mxu_reducers(("mnt4_753", "mnt6_753")))),
             # the ladder's other modes on BLS12-377 (K3 + K4 on G1, K3 on G2)
             # and their coordinator's side (the beacon's response is split)
             ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH, dirs["modes"])),
@@ -2276,8 +2334,14 @@ def main() -> int:
             ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH, dirs["modes"])),
             # phase 2 on BW6-761 from the verify path's new challenge: the
             # SHA-256 circuit's ceremony, then the prover gate
-            ("bw6_761 phase2", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "sha256")),
-            ("bw6_761 prover", lambda: phase2_phase(dev, args.power, BATCH, bw6_dir, phase2_wrappers, "prover")),
+            ("bw6_761 phase2", lambda: phase2_phase(dev, "bw6_761", args.power, BATCH, bw6_dir, phase2_wrappers,
+                                                    "sha256")),
+            ("bw6_761 prover", lambda: phase2_phase(dev, "bw6_761", args.power, BATCH, bw6_dir, phase2_wrappers,
+                                                    "prover", reject_l=False)),
+            # phase 2 on BLS12-377, the phase-2 CLI's default curve: the
+            # prover gate from the `bls12_377 verify` path's new challenge
+            ("bls12_377 phase2", lambda: phase2_phase(dev, "bls12_377", BLS_VERIFY_POWER, BATCH, bls_dir,
+                                                      bls_phase2_wrappers, "prover")),
             # the streaming phase 2 on the SHA-256 path's files, the device
             # mesh over two entries of the card, the portable contributor on
             # the prover gate's challenge
@@ -2291,7 +2355,8 @@ def main() -> int:
         # kernels that must launch on a path besides the rows it owns
         also = {p: ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "glv_digits[bls12_377/g2]")
                 for p in ("bls12_377 beacon", "bls12_377 chunked", "bls12_377 marlin")}
-        also |= {p: PHASE2_KERNELS + ("group_dbl[bw6_761/g1]",) for p in PHASE2_PATHS}
+        also |= {p: PHASE2_KERNELS + ("group_dbl[bw6_761/g1]",) for p in PHASE2_PATHS if p.startswith("bw6_761")}
+        also["bls12_377 phase2"] = BLS_PHASE2_KERNELS
         also[CHUNKED_PATH] = ("glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]", "group_add[bw6_761/g1]",
                               "group_dbl[bw6_761/g1]")
         also["mesh"] = ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "group_add[bls12_377/g1]",
@@ -2321,8 +2386,9 @@ def main() -> int:
                 if n <= 0:
                     raise AssertionError(f"{label} was never launched on the {curve} path")
             if curve in (*PHASE2_PATHS, CHUNKED_PATH):
+                counted = bls_phase2_wrappers if curve.startswith("bls12_377") else phase2_wrappers
                 for r in rows:
-                    if r["_wrapper"] in phase2_wrappers.values():
+                    if r["_wrapper"] in counted.values():
                         r.setdefault("phase2_launches", {})[curve] = r["_wrapper"].launches
             emit({"phase": "path", "curve": curve, "seconds": time.perf_counter() - t0,
                   "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched})

@@ -28,6 +28,33 @@ class DegeneratePairingError(Exception):
     this as a failed check."""
 
 
+def _pow_window(ctx, a, e: int, w: int = 5):
+    """a^e (e > 0) by a sliding window of w bits over the odd powers
+    a, a^3, ..., a^(2^w - 1): about one multiplication per w + 1 bits
+    besides the squarings, where square-and-multiply takes one per two."""
+    a2 = ctx.square(a)
+    odd = [a]
+    for _ in range((1 << (w - 1)) - 1):
+        odd.append(ctx.mul(odd[-1], a2))
+    result = None
+    i = e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            result = ctx.square(result)
+            i -= 1
+            continue
+        j = max(i - w + 1, 0)
+        while not (e >> j) & 1:  # the window ends on a set bit
+            j += 1
+        val = (e >> j) & ((1 << (i - j + 1)) - 1)
+        if result is not None:
+            for _ in range(i - j + 1):
+                result = ctx.square(result)
+        result = odd[val >> 1] if result is None else ctx.mul(result, odd[val >> 1])
+        i = j - 1
+    return result
+
+
 def _scale_int(ctx, a, c: int):
     """Multiply a tower element by an Fp integer (coefficient-wise)."""
     if isinstance(ctx, PrimeCtx):
@@ -52,6 +79,12 @@ class PairingEngine:
         self.k = spec.embedding_degree
         self._build_tower()
         self.final_exp_e = (self.q**self.k - 1) // self.r
+        # every tower's top is quadratic over Fq^(k/2), whose conjugation is
+        # the q^(k/2)-power Frobenius: f^(q^(k/2) - 1) = conj(f) / f, and
+        # (q^(k/2) + 1) / r is what is left of the final exponent
+        half = self.q ** (self.k // 2) + 1
+        assert self.k % 2 == 0 and half % self.r == 0
+        self.final_exp_hard = half // self.r
 
     # -- tower construction ------------------------------------------------
     def _build_tower(self):
@@ -300,14 +333,24 @@ class PairingEngine:
             raise DegeneratePairingError("input not killed by r")
         return f_n, f_d
 
+    def _final_exp(self, f_n, f_d):
+        """(f_n / f_d)^final_exp_e: the easy part (q^(k/2) - 1) as
+        conj(f_n) f_d / (f_n conj(f_d)), one inversion, then the power
+        final_exp_hard, about half the bits of final_exp_e. The same value
+        as the generic power (0 for f_n = 0)."""
+        ctx = self.ctx
+        if ctx.is_zero(f_n):
+            return ctx.zero()
+        conj = lambda a: (a[0], ctx.base.neg(a[1]))
+        g = ctx.mul(ctx.mul(conj(f_n), f_d), ctx.inv(ctx.mul(f_n, conj(f_d))))
+        return _pow_window(ctx, g, self.final_exp_hard)
+
     # -- public API --------------------------------------------------------
     def pairing_value(self, p_pt: AffinePoint, q_pt: AffinePoint):
         """Final-exponentiated Tate pairing value (for tests/equality)."""
         if p_pt.is_infinity or q_pt.is_infinity:
             return self.ctx.one()
-        f_n, f_d = self._miller(p_pt, self.untwist(q_pt))
-        f = self.ctx.mul(f_n, self.ctx.inv(f_d))
-        return ctx_pow(self.ctx, f, self.final_exp_e)
+        return self._final_exp(*self._miller(p_pt, self.untwist(q_pt)))
 
     def product_is_one(self, pairs) -> bool:
         """Check prod_i e(P_i, Q_i) == 1 with a single final exponentiation.
@@ -326,8 +369,7 @@ class PairingEngine:
                 acc_d = ctx.mul(acc_d, f_d)
         except DegeneratePairingError:
             return False
-        f = ctx.mul(acc_n, ctx.inv(acc_d))
-        return ctx.eq(ctx_pow(ctx, f, self.final_exp_e), ctx.one())
+        return ctx.eq(self._final_exp(acc_n, acc_d), ctx.one())
 
     def same_ratio(self, g1_pair, g2_pair) -> bool:
         """e(g1.0, g2.1) == e(g1.1, g2.0).

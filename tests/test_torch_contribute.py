@@ -1,8 +1,8 @@
 """The slices as a whole: `phase1 contribute` of the port on the CPU.
 
-- Groth16 on BW6-761 (power 2, batch 2, uncompressed challenge -> compressed
-  response): the port's `Phase1.computation` output is byte-identical to the
-  JAX package's for the same challenge and key.
+- Groth16 on BW6-761 and BLS12-381 (power 2, batch 2, uncompressed
+  challenge -> compressed response): the port's `Phase1.computation` output
+  is byte-identical to the JAX package's for the same challenge and key.
 - Marlin on BW6-761: the port's output against the host oracle
   (Python-int curve arithmetic).
 - The port's CLI `new` + `contribute` against the port's protocol call.
@@ -13,6 +13,7 @@
   every point of every section against the host oracle.
 """
 
+import functools
 import hashlib
 import os
 
@@ -59,17 +60,23 @@ def _port_contribution(params, challenge):
     return key, out
 
 
-@pytest.fixture(scope="module")
-def groth16():
-    params = TParams.new_full(CURVE, te.ProvingSystem.GROTH16, POWER, BATCH)
+@functools.lru_cache(maxsize=None)
+def _groth16(curve):
+    params = TParams.new_full(curve, te.ProvingSystem.GROTH16, POWER, BATCH)
     challenge = _challenge(params)
     key, out = _port_contribution(params, challenge)
     return params, challenge, key, out
 
 
-def test_groth16_response_byte_identical_to_jax_package(groth16):
-    tp, challenge, key, got = groth16
-    jp = JParams.new_full(CURVE, je.ProvingSystem.GROTH16, POWER, BATCH)
+@pytest.fixture(scope="module")
+def groth16():
+    return _groth16(CURVE)
+
+
+@pytest.mark.parametrize("curve", [CURVE, "bls12_381"])
+def test_groth16_response_byte_identical_to_jax_package(curve):
+    tp, challenge, key, got = _groth16(curve)
+    jp = JParams.new_full(curve, je.ProvingSystem.GROTH16, POWER, BATCH)
     j_challenge = bytearray(jp.get_length(je.UseCompression.NO))
     j_challenge[:64] = blank_hash()
     JPhase1.initialization(j_challenge, je.UseCompression.NO, jp)

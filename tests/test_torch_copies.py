@@ -154,7 +154,7 @@ def test_rederived_tower_and_curve_constants_equal(curve, group):
         assert astuple(tops.glv.p) == astuple(jops.glv.p)
 
 
-@pytest.mark.parametrize("curve", ["bls12_377", "bw6_761", "mnt4_753", "mnt6_753"])
+@pytest.mark.parametrize("curve", ["bls12_377", "bls12_381", "bw6_761", "mnt4_753", "mnt6_753"])
 def test_hash_to_g2_equals_reference(curve):
     """The port's hash_to_g2 pre-filters candidates on their top bytes; the
     point it returns is the reference's, candidate for candidate. On MNT6-753
@@ -286,10 +286,12 @@ def test_unported_groups_and_commands_raise_not_implemented():
             FusedGLVLadder(curve_ops(curve, group))
 
 
-@pytest.mark.parametrize("curve", ["bls12_377", "bw6_761"])
+@pytest.mark.parametrize("curve", ["bls12_377", "bw6_761", "bls12_381", "mnt4_753", "mnt6_753"])
 def test_pairing_copies_equal_reference(curve):
     """curves/{tower,pairing}.py are host copies: the same pairing values
-    (nested tuples of ints) and the same check_same_ratio decisions."""
+    (nested tuples of ints) and the same check_same_ratio decisions (the
+    port's final exponentiation takes its easy part by conjugation and the
+    rest by a sliding window: the reference's value by other means)."""
     from snark_setup_tpu.curves.host import g1_curve as jg1, g2_curve as jg2
     from snark_setup_tpu.curves.pairing import pairing_engine as j_engine
     from snark_setup_tpu.utils.errors import InvalidRatioError as JInvalidRatio

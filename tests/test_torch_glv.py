@@ -25,13 +25,13 @@ torch.set_num_threads(1)
 # the tests run on the CPU: every seam constructor is asked for it by name
 planes_from_reference = partial(convert.planes_from_reference, device="cpu")
 
-GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_381", "g1"), ("bls12_381", "g2")]
 
 
 def _scalars(ops, B, seed):
     rng = np.random.default_rng(seed)
     ks = [int.from_bytes(rng.bytes(64), "little") % ops.spec.r for _ in range(B)]
-    ks[0], ks[1], ks[2] = 0, 1, ops.spec.r - 1
+    ks[:5] = 0, 1, ops.spec.r - 1, ops.glv.p.lam, ops.spec.r - ops.glv.p.lam
     return ks, np.ascontiguousarray(ints_to_limbs_batch(ks, ops.fr.L).T)
 
 

@@ -19,7 +19,9 @@ from snark_setup_tpu_torch.ops.cuda_glv import glv_digits_for, glv_digits_plain
 from snark_setup_tpu_torch.ops.cuda_ladder import fused_ladder_for, glv_ladder_plain
 from snark_setup_tpu_torch.ops.curve import PointVec, curve_ops
 
-GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2")]
+GROUPS = [("bls12_377", "g1"), ("bw6_761", "g1"), ("bw6_761", "g2"), ("bls12_381", "g1")]
+# groups over Fp2: K3 feeds the ladder over the group law (K5 rounds) there
+DIGITS_ONLY = [("bls12_377", "g2"), ("bls12_381", "g2")]
 
 
 @pytest.mark.gpu
@@ -69,6 +71,8 @@ STACKED = [
     ("mnt4_753", "g2", ((1, 1, 0), (0, 0, 2))),
     ("mnt6_753", "g2", ((1, 1, 0), (0, 1, 1))),
     ("bw6_761", "g1", ((1, 1, 1, 1),)),
+    ("bls12_381", "g2", ((1, 0, 0), (0, 1, 0), (0, 0, 1))),
+    ("bls12_381", "g1", ((1,),)),  # the square root's Fq product
 ]
 
 
@@ -335,10 +339,11 @@ def test_stacked_mul_kernel_at_the_main_path_shapes_on_the_card(curve, group, we
 
 
 def _glv_edge_scalars(ops):
-    """0, 1, r - 1, a scalar with one non-zero window (k1 = k, k2 = 0), and
-    one scalar for each (neg, flip) pair of the decomposition."""
-    r = ops.spec.r
-    ks = [0, 1, r - 1, 5 << 40]
+    """0, 1, r - 1, a scalar with one non-zero window (k1 = k, k2 = 0), the
+    eigenvalue lambda and r - lambda (k2 = +-1, k1 = 0), and one scalar for
+    each (neg, flip) pair of the decomposition."""
+    r, lam = ops.spec.r, ops.glv.p.lam
+    ks = [0, 1, r - 1, 5 << 40, lam, r - lam]
     rng = np.random.default_rng(29)
     combos = {}
     while len(combos) < 4:
@@ -385,6 +390,30 @@ def test_glv_kernels_at_widths_and_edge_scalars_on_the_card(curve, group, width)
         want_p = glv_ladder_plain(ops, pts, *want_d)
         for k in "xyz":
             assert torch.equal(got_p[k], want_p[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 2, 33, 4097, 16384])
+@pytest.mark.parametrize("curve,group", DIGITS_ONLY)
+def test_glv_digits_on_fp2_groups_at_widths_and_edge_scalars_on_the_card(curve, group, width):
+    """K3 alone (its library for the curve) against its plain version where
+    no ladder kernel follows it, with the edge scalars of the test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda")
+    ops = curve_ops(curve, group)
+    dig = glv_digits_for(curve, group)
+    rng = np.random.default_rng(41)
+    edge, r = _glv_edge_scalars(ops), ops.spec.r
+    ks = [edge[i % len(edge)] if i < 2 * len(edge) else int.from_bytes(rng.bytes(64), "little") % r
+          for i in range(width)]
+    scalars = ops.fr.tensor(ints_to_limbs_batch(ks, ops.fr.L).T, dev)
+    n_dig = dig.launches
+    got_d = dig(scalars)
+    torch.cuda.synchronize()
+    assert dig.launches == n_dig + 1
+    for a, b in zip(got_d, glv_digits_plain(ops, scalars)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -294,3 +294,45 @@ def test_runtime_on_a_mesh_of_the_card_equals_one_device(monkeypatch):
         runtime.reset_mesh_cache()
     assert all(calls.values()), calls
     assert meshed == single
+
+
+@pytest.mark.gpu
+def test_bls12_377_sha256_chain_on_the_card(tmp_path):
+    """The SHA-256 circuit's phase 2 on BLS12-377, the phase-2 CLI's default
+    curve, through `chip_smoke.py`'s phases and checks: a power-16
+    contribution through the phase-1 CLI, its verification
+    (`verify-and-transform-pok-and-correctness` + `-ratios`), then
+    `circuit_main create --complex`, `prepare_phase2` at domain 2^16, `new`
+    in 2 chunks, two participants per chunk, verify, the response with one L
+    point replaced rejected by the L ratio check, `combine` (Lagrange sums,
+    h query, hash chain, combined contributions). K3 + K4 and K2 on G1, K3
+    on G2 and K5 (G2 over Fp2) launch in the phase-2 steps. One JSON line a
+    step on the standard output (run with -s for the walls)."""
+    import time
+
+    import chip_smoke as S
+    from snark_setup_tpu_torch.ops.cuda_group import group_ops_for
+    from snark_setup_tpu_torch.ops.cuda_ladder import fused_ladder_for
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
+
+    dev = _card()
+    power, work = 16, str(tmp_path)
+    with torch.no_grad():
+        S.contribute_phase(dev, "bls12_377", power, S.BATCH, {}, picks=2, workdir=work)
+        t0 = time.perf_counter()
+        S.verify_phase(dev, "bls12_377", power, S.BATCH, work, (), {})
+        t_verify = time.perf_counter() - t0
+        kernels = {"glv_digits[bls12_377/g1]": glv_digits_for("bls12_377", "g1"),
+                   "glv_ladder[bls12_377/g1]": fused_ladder_for("bls12_377", "g1"),
+                   "group_add[bls12_377/g1]": group_ops_for("bls12_377", "g1").add_k,
+                   "glv_digits[bls12_377/g2]": glv_digits_for("bls12_377", "g2"),
+                   "stacked_mul[bls12_377]": stacked_mul_for(curve_ops("bls12_377", "g2").fq.modulus)}
+        before = {k: (w.launches, w.plain_calls) for k, w in kernels.items()}
+        t0 = time.perf_counter()
+        S.phase2_phase(dev, "bls12_377", power, S.BATCH, work, kernels, "sha256", participants=2)
+        t_chain = time.perf_counter() - t0
+    launched = {k: w.launches - before[k][0] for k, w in kernels.items()}
+    S.emit({"phase": "bls12_377 sha256 chain", "verify_seconds": t_verify, "chain_seconds": t_chain,
+            "verify_and_chain_seconds": t_verify + t_chain, "launches": launched})
+    assert all(n > 0 for n in launched.values()), launched
+    assert all(w.plain_calls == before[k][1] for k, w in kernels.items())

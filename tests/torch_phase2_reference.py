@@ -3,16 +3,19 @@
 tests/test_torch_phase2_chunked.py).
 
 - `phase1_transcript`: a full, uncompressed Groth16 phase-1 transcript made
-  with host arithmetic (fixed tau, alpha, beta), handed to both packages.
-- `jax_reference`: everything the JAX package computes from it —
-  Groth16Params and prepare_phase2 bytes, QAP evaluations, MPCParameters
-  new / new_chunked / contribute / verify / combine, and its phase-2 CLI
-  chain's files — in one process, so that each of its deep XLA:CPU
-  compiles (the group FFT, the segmented row sums, the codec) runs once.
-- `reference`: a session fixture's getter; the first pytest worker that
-  needs the outputs computes them in a fresh interpreter (an XLA:CPU abort
-  then fails a test instead of taking a worker down) under a file lock in
-  the directory the workers share; the others read them.
+  with host arithmetic (fixed tau, alpha, beta) on a given curve, handed to
+  both packages.
+- `jax_reference`: everything the JAX package computes from it on that
+  curve — Groth16Params and prepare_phase2 bytes, QAP evaluations,
+  MPCParameters new / new_chunked / contribute / verify / combine, and (on
+  BLS12-377) its phase-2 CLI chain's files — in one process, so that each
+  of its deep XLA:CPU compiles (the group FFT, the segmented row sums, the
+  codec) runs once.
+- `reference`: a session fixture's getter, per curve; the first pytest
+  worker that needs a curve's outputs computes them in a fresh interpreter
+  (an XLA:CPU abort then fails a test instead of taking a worker down)
+  under a file lock in the directory the workers share; the others read
+  them.
 - `jax_chunked_reference` / `chunked_reference`: the JAX package's streaming
   phase 2 on MPCParameters bytes, the same way in a fresh interpreter of
   its own.
@@ -91,27 +94,29 @@ def _cwd(path):
         os.chdir(old)
 
 
-def cli_chain(circuit_main, prepare_main, phase2_main, workdir: str, transcript: bytes, extra=()) -> dict:
+def cli_chain(circuit_main, prepare_main, phase2_main, workdir: str, transcript: bytes, extra=(),
+              curve: str = CURVE) -> dict:
     """prepare -> new (2 chunks) -> one participant contributes to each
-    chunk -> verify each -> combine -> circuit test, through one package's
-    CLI mains (`extra`: flags every command of it takes) in `workdir`;
-    returns each command's exit code by name."""
+    chunk -> verify each -> combine -> circuit test on `curve` (a power-4
+    transcript), through one package's CLI mains (`extra`: flags every
+    command of it takes) in `workdir`; returns each command's exit code by
+    name."""
     with open(os.path.join(workdir, "response"), "wb") as f:
         f.write(transcript)
     with open(os.path.join(workdir, "seed1"), "w") as f:
         f.write(CLI_SEEDS[0])
     rcs = {}
-    common = ["--curve-kind", CURVE, "--batch-size", "4", "--chunk-size", str(CHUNK), *extra]
+    common = ["--curve-kind", curve, "--batch-size", "4", "--chunk-size", str(CHUNK), *extra]
     with _cwd(workdir):
-        rcs["create"] = circuit_main.main(["create", "--curve-kind", CURVE])
-        rcs["prepare"] = prepare_main.main(["--curve-kind", CURVE, "--power", str(POWER), "--batch-size", "8",
+        rcs["create"] = circuit_main.main(["create", "--curve-kind", curve])
+        rcs["prepare"] = prepare_main.main(["--curve-kind", curve, "--power", str(POWER), "--batch-size", "8",
                                             "--phase2-size", "8", "--phase2-fname", "transcript",
                                             "--response-fname", "response", *extra])
         rcs["new"] = phase2_main.main(common + ["new", "--challenge-fname", "challenge",
                                                 "--challenge-hash-fname", "challenge.verified.hash",
                                                 "--challenge-list-fname", "new_challenge_list",
                                                 "--phase1-fname", "transcript",
-                                                "--circuit-fname", f"testcircuit_{CURVE}"])
+                                                "--circuit-fname", f"testcircuit_{curve}"])
         with open("new_challenge_list") as f:
             chunks = f.read().split()
         for i, chunk in enumerate(chunks):
@@ -131,13 +136,14 @@ def cli_chain(circuit_main, prepare_main, phase2_main, workdir: str, transcript:
                                                     "--initial-query-fname", "challenge.query",
                                                     "--initial-full-fname", "challenge.full",
                                                     "--combined-fname", "combined"])
-        test_args = ["test", "--curve-kind", CURVE, "--proving-key-path", "combined.params"]
+        test_args = ["test", "--curve-kind", curve, "--proving-key-path", "combined.params"]
         rcs["test"] = circuit_main.main(test_args + [a for a in extra])
     return rcs
 
 
-def jax_reference(transcript: bytes, workdir: str) -> dict:
-    """The JAX package's outputs from `transcript` (see the module doc)."""
+def jax_reference(transcript: bytes, workdir: str, curve: str = CURVE) -> dict:
+    """The JAX package's outputs from `transcript` on `curve` (see the
+    module doc); the parallel circuit and the CLI chain on `CURVE` only."""
     from snark_setup_tpu.cli import circuit_main, phase2_main, prepare_phase2_main
     from snark_setup_tpu.curves.constants import get_curve
     from snark_setup_tpu.curves.host import g1_curve
@@ -154,8 +160,8 @@ def jax_reference(transcript: bytes, workdir: str) -> dict:
     from snark_setup_tpu.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
 
     NO, YES = UseCompression.NO, UseCompression.YES
-    spec = get_curve(CURVE)
-    params = Phase1Parameters.new_full(CURVE, ProvingSystem.GROTH16, POWER, 8)
+    spec = get_curve(curve)
+    params = Phase1Parameters.new_full(curve, ProvingSystem.GROTH16, POWER, 8)
     sec = split(params, NO)
 
     def section(name, group):
@@ -166,9 +172,9 @@ def jax_reference(transcript: bytes, workdir: str) -> dict:
     tau_g1, tau_g2 = section("tau_g1", "g1"), section("tau_g2", "g2")
     alpha_g1, beta_g1, beta_g2 = section("alpha_g1", "g1"), section("beta_g1", "g1"), section("beta_g2", "g2")
     out = {}
-    gp = Groth16Params.new(CURVE, PHASE2_SIZE, tau_g1, tau_g2, alpha_g1, beta_g1, beta_g2[0])
+    gp = Groth16Params.new(curve, PHASE2_SIZE, tau_g1, tau_g2, alpha_g1, beta_g1, beta_g2[0])
     out["params_write"] = gp.write(NO)
-    out["prepare"] = prepare_transcript_device(CURVE, PHASE2_SIZE, transcript, params)
+    out["prepare"] = prepare_transcript_device(curve, PHASE2_SIZE, transcript, params)
 
     def matrices(circuit):
         return Matrices.from_constraint_system(spec, circuit_to_qap(circuit, spec.r))
@@ -176,12 +182,13 @@ def jax_reference(transcript: bytes, workdir: str) -> dict:
     mats = matrices(TestCircuit())
     nv = mats.num_instance_variables + mats.num_witness_variables
     at, bt, ct = (process_matrix(x, nv) for x in (mats.a, mats.b, mats.c))
-    qap = eval_qap(CURVE, gp.coeffs_g1, gp.coeffs_g2, gp.alpha_coeffs_g1, gp.beta_coeffs_g1, at, bt, ct,
+    qap = eval_qap(curve, gp.coeffs_g1, gp.coeffs_g2, gp.alpha_coeffs_g1, gp.beta_coeffs_g1, at, bt, ct,
                    mats.num_instance_variables)
     out["eval_qap"] = [_ser(spec, g, v) for g, v in zip(("g1", "g1", "g2", "g1", "g1"), qap)]
-    par = matrices(TestParallelCircuit(PARALLEL_K))
-    pat = process_matrix(par.a, par.num_instance_variables + par.num_witness_variables)
-    out["parallel_a_g1"] = _ser(spec, "g1", dot_product_vec(curve_ops(CURVE, "g1"), gp.coeffs_g1, pat))
+    if curve == CURVE:
+        par = matrices(TestParallelCircuit(PARALLEL_K))
+        pat = process_matrix(par.a, par.num_instance_variables + par.num_witness_variables)
+        out["parallel_a_g1"] = _ser(spec, "g1", dot_product_vec(curve_ops(CURVE, "g1"), gp.coeffs_g1, pat))
 
     mpc = MPCParameters.new(mats, gp)
     out["mpc_new"] = mpc.write(NO)
@@ -205,6 +212,8 @@ def jax_reference(transcript: bytes, workdir: str) -> dict:
     combined = MPCParameters.combine(spec, query, after)
     out["combined"] = combined.write(NO)
     out["combined_verify"] = full.verify(combined, rlc_rng=random.Random(15))
+    if curve != CURVE:
+        return out
 
     out["cli_rcs"] = cli_chain(circuit_main, prepare_phase2_main, phase2_main, workdir, transcript)
     out["cli_files"] = {}
@@ -331,18 +340,20 @@ def shared_dir(tmp_path_factory):
     return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
 
 
-def reference(tmp_path_factory) -> dict:
-    """The transcript and the JAX package's outputs, made once per run."""
+def reference(tmp_path_factory, curve: str = CURVE, with_jax: bool = True) -> dict:
+    """The transcript and the JAX package's outputs on `curve` (None unless
+    `with_jax`), made once per run and curve, in a file of its own."""
     root = shared_dir(tmp_path_factory)
-    path = root / "torch_phase2_reference.pkl"
+    tag = "" if curve == CURVE else f"_{curve}"
+    path = root / f"torch_phase2_reference{tag}.pkl"
     with FileLock(str(path) + ".lock"):
         if not path.exists():
-            transcript = phase1_transcript()
-            workdir = root / "torch_phase2_jax_cli"
+            transcript = phase1_transcript(curve)
+            workdir = root / f"torch_phase2_jax_cli{tag}"
             workdir.mkdir(exist_ok=True)
             data = {"transcript": transcript,
                     "jax": in_fresh_interpreter("torch_phase2_reference", "jax_reference", transcript,
-                                                str(workdir))}
+                                                str(workdir), curve) if with_jax else None}
             with open(path, "wb") as f:
                 pickle.dump(data, f)
     with open(path, "rb") as f:
