@@ -17,9 +17,10 @@ responses that must be rejected by the named check) and on a BLS12-377 one;
 then BLS12-381 at BLS_VERIFY_POWER and full batch width: the `bls12_381`
 path contributes (K3 on both groups — the curve's own digits library,
 `glv_digits_bls12_381` —, K4 on G1, K5 rounds for G2 over Fp2) and the
-`bls12_381 verify` path verifies that response (K2 on G1; K5 for G2, the
-subgroup checks and the square root at S = G = 1) and rejects a `swap` and
-an `out_of_subgroup` response (the G1 cofactor gives the point) —
+`bls12_381 verify` path verifies that response (K2 on G1; K5 for G2 and
+its subgroup checks; the square-root kernel for G1's decompression) and
+rejects a `swap` and an `out_of_subgroup` response (the G1 cofactor gives
+the point) —
 and checks the results against the host oracle (Python-int curve arithmetic
 and the host codec). Then the stacked product's three opt-in routes: the
 BLS12-377 verify path's power-13 contribution again under
@@ -34,9 +35,13 @@ summed from its launch events, as on the contribute and route paths; under
 SNARK_SETUP_MXU_STACKED also the seconds of the float64 reduction after
 K6, from events around each reduction). Each path runs with every kernel's launch count set to 0
 just before it and read just after; every kernel must have launched on its
-path, and no plain version may have run there. K5 also runs as one Fq
-product a launch in the decompression square root's chains: its rows at
-that shape (S = G = 1) belong to the BW6-761 and BLS12-377 verify paths.
+path, and no plain version may have run there. The decompression square
+root over Fq is one launch of its own kernel (csrc/fq_sqrt.cu, one team of
+threads a lane for the whole chain), held against `fq_sqrt_plain` at 1, 33,
+4097 and 16384 lanes with 0, 1, q - 1 and non-squares in every run; its
+rows (BW6-761, BLS12-377, BLS12-381) belong to the verify paths, where it
+must launch. K5 launches on the BW6-761 verify path are reported (none is
+expected: that path's only K5 products were the square root's).
 
 Each phase prints one JSON line. Near the end it prints one
 `{"kernels": [...]}` line with, per kernel and configuration: the launches
@@ -72,6 +77,11 @@ each launch the same way (`call_ms` for the digits) and carry
 `launches_by_width`; the digits rows also the library's compile-time
 `geometry`, the ladder's rows `team` and `lanes_ms`: its time at every
 width the main path launched and at 1 lane.
+The stacked product's rows (K5) carry `launches_of_shape` and
+`launches_by_shape`: the launches of each weight shape (`shape_key`) on the
+row's path, which scripts/compare_kernels.py --launch-weights reads; the
+square root's rows `team`, `products` (Montgomery products a lane) and
+`two_adicity`.
 After the default paths it runs BLS12-377 contributions in the modes they
 do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (every
 chunk) and Marlin `contribute`, each checked against the host oracle and
@@ -180,18 +190,14 @@ STACKED = (
     ("mnt6_753", "g2", "Fp3 add round 0", ID6),
     ("mnt6_753", "g2", "Fp3 add round 2 (pairwise merge)", PAIRS),
 )
-# K5 as one Fq product a launch: the decompression square root's chains
-# (ops/codec.py: ExtSqrt), on the verify path that decompresses that field
-SQRT_STACKED = (
-    ("bw6_761", "g1", "Fq product (square root, S=G=1)", ((1,),), "bw6_761 verify"),
-    ("bls12_377", "g1", "Fq product (square root, S=G=1)", ((1,),), "bls12_377 verify"),
-)
-# K5 on the BLS12-381 modulus: its G2 ladder's Fp2 rounds (contribution) and
-# its square root's Fq products (verification), with the path of each
+# K5 on the BLS12-381 modulus: its G2 ladder's Fp2 rounds (contribution)
 BLS12_381_STACKED = (
     ("bls12_381", "g2", "Fp2 add round 0", ID6, "bls12_381"),
-    ("bls12_381", "g1", "Fq product (square root, S=G=1)", ((1,),), "bls12_381 verify"),
 )
+# the decompression square root over Fq (ops/cuda_sqrt.py), one launch a
+# batch, on the verify path that decompresses that field's points
+SQRT_CURVES = ("bw6_761", "bls12_377", "bls12_381")
+SQRT_WIDTHS = (1, 33, RAGGED, BATCH)
 # the opt-in routes' kernels: K6 and K7 at every K5 shape above; K8 only
 # where v2_supported holds (degree-1 rounds with small weight sums)
 ROUTE_SHAPES = {
@@ -471,11 +477,11 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
     import numpy as np
     import torch
 
-    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for, stacked_mul_plain
+    from snark_setup_tpu_torch.ops.cuda_mul import shape_key, stacked_mul_for, stacked_mul_plain
     from snark_setup_tpu_torch.ops.curve import curve_ops
 
     rows = []
-    for ci, (curve, group, label, weights, *path) in enumerate(STACKED + SQRT_STACKED + BLS12_381_STACKED):
+    for ci, (curve, group, label, weights, *path) in enumerate(STACKED + BLS12_381_STACKED):
         F = curve_ops(curve, group).field
         fq = F.fp
         K = stacked_mul_for(fq.modulus)
@@ -514,11 +520,76 @@ def compare_stacked_mul(dev, batch: int) -> list[dict]:
             "batch": batch, "shape": {"S": len(comp[0]), "G": len(comp), "SU": SU,
                                       "max_weight_sum": max(sum(g) for g in comp)},
             "_wrapper": K, "_path": path[0] if path else curve, "_label": f"stacked_mul[{curve}]",
+            "_shape": shape_key(comp),
         })
         emit({"phase": "kernels", "config": f"stacked_mul {curve} {label}", "batch": batch,
               "ragged_batch": RAGGED, "edge_values": [0, 1, "N-1"], "equal": True,
               "ms": {"kernel": ms, "plain": plain_ms},
               "plain_chunk_lanes": chunk})
+    return rows
+
+
+def sqrt_inputs(fq, z: int, B: int, rng, dev):
+    """(L, B) Montgomery planes: 0, 1, q - 1, the non-residue z and 4 z (a
+    non-square) in lanes 0-4 (as far as B goes), then alternately random
+    squares and random values."""
+    q = fq.modulus
+    rand = [int.from_bytes(rng.bytes(q.bit_length() // 8 + 8), "little") % q for _ in range(B)]
+    vals = [v * v % q if i % 2 else v for i, v in enumerate(rand)]
+    vals[: min(B, 5)] = [0, 1, q - 1, z, 4 * z % q][: min(B, 5)]
+    return fq.tensor(fq.from_int(vals), dev)
+
+
+def sqrt_work(K, B: int) -> tuple[int, int]:
+    """Bytes (the operand read once, root and mask written once) and 32-bit
+    multiply-adds (2 NL^2 a Montgomery product) of one square-root launch
+    at B lanes."""
+    return 4 * B * (2 * K.L + 1), B * K.products() * 2 * K.NL * K.NL
+
+
+def compare_sqrt(dev, batch: int) -> list[dict]:
+    """The square-root kernel against its plain version on the card at
+    SQRT_WIDTHS, root and mask, with the edge values and non-squares in
+    every run, then its time at the main path's batch."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for, fq_sqrt_plain
+
+    rows = []
+    for ci, curve in enumerate(SQRT_CURVES):
+        sq = batch_codec(curve, "g1", dev).sqrter
+        K = fq_sqrt_for(sq.q, sq.z_coeffs[0])
+        fq = K.fq
+        rng = np.random.default_rng(SEED + 600 + ci)
+        err = 0
+        for B in SQRT_WIDTHS:
+            a = sqrt_inputs(fq, K.z, B, rng, dev)
+            root, ok = K(a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want_root, want_ok = fq_sqrt_plain(fq, K.z, a)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            err = max(err, max_abs_diff(root, want_root), max_abs_diff(ok.int(), want_ok.int()))
+            if err:
+                raise AssertionError(f"fq_sqrt {curve} B={B}: kernel differs from plain version")
+            if bool(ok[3:5].any()) or not bool(ok[:2].all()):  # z and 4 z are no squares; 0 and 1 are
+                raise AssertionError(f"fq_sqrt {curve} B={B}: wrong mask on the edge values")
+        ms = launch_ms(K, lambda: K(a), 5)
+        b_ms, b_by = bound(*sqrt_work(K, batch))
+        rows.append({
+            "name": f"fq_sqrt[{curve}]", "route": "cuda",
+            "source": "snark_setup_tpu_torch/ops/csrc/fq_sqrt.cu",
+            "replaces": "snark_setup_tpu/ops/pallas_field.py:498", "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "batch": batch, "widths": list(SQRT_WIDTHS), "team": K.team, "products": K.products(),
+            "two_adicity": K.e, "_wrapper": K, "_path": f"{curve} verify", "_label": f"fq_sqrt[{curve}]",
+        })
+        emit({"phase": "kernels", "config": f"fq_sqrt {curve}", "batch": batch, "widths": list(SQRT_WIDTHS),
+              "edge_values": [0, 1, "q-1", "z", "4z"], "equal": True, "ms": {"kernel": ms, "plain": plain_ms},
+              "products_a_lane": K.products()})
     return rows
 
 
@@ -2056,7 +2127,7 @@ def verify_breakdown_phase(dev, power: int, batch: int, workdir: str) -> None:
         stages[name] = time.perf_counter() - t0
         return out
 
-    pts = timed("read_batch: host parse + decompression (sqrt on K5)",
+    pts = timed("read_batch: host parse + decompression (the square-root kernel)",
                 lambda: codec.read_batch(data, UseCompression.YES, CheckForCorrectness.ONLY_NON_ZERO))
     bits = (np.frombuffer(np.random.default_rng(SEED + 710).bytes(SUBGROUP_BATCH_ROUNDS * n), np.uint8)
             .reshape(SUBGROUP_BATCH_ROUNDS, n) & 1).astype(bool)
@@ -2247,6 +2318,8 @@ def main() -> int:
     # import the port before anything is printed: run without the package
     # beside it, the script fails here and prints no result
     from snark_setup_tpu_torch.ops import build
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops
 
     # the default paths run on K5: no route switch from the caller's
     # environment reaches them (the route paths set their own)
@@ -2265,10 +2338,12 @@ def main() -> int:
                     for t, log in build.build_logs.items()}})
 
     with torch.no_grad(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        rows = (compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_routes(dev, BATCH)
-                + compare_group_ops(dev, BATCH))
+        rows = (compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_sqrt(dev, BATCH)
+                + compare_routes(dev, BATCH) + compare_group_ops(dev, BATCH))
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
-        wrappers = {id(r["_wrapper"]): r["_wrapper"] for r in rows}.values()
+        # K5 of BW6-761's Fq: no row of its own since the square root left it
+        watched = {"stacked_mul[bw6_761]": stacked_mul_for(curve_ops("bw6_761", "g1").fq.modulus)}
+        wrappers = {id(w): w for w in (*(r["_wrapper"] for r in rows), *watched.values())}.values()
         # the kernels of the phase-2 paths (both groups of BW6-761 on Fq;
         # BLS12-377's G1 kernels and K3 + K5 for its G2): their kernel
         # seconds are summed per CLI step
@@ -2362,12 +2437,17 @@ def main() -> int:
         also["mesh"] = ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "group_add[bls12_377/g1]",
                         "glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]", "group_add[bw6_761/g1]")
         also["portable"] = ("group_add[bw6_761/g1]", "group_dbl[bw6_761/g1]")
+        # K5 on the verify paths that still launch it: G2 over Fp2 (group law
+        # and subgroup checks), the square root over Fq being its own kernel
+        also["bls12_377 verify"] = ("stacked_mul[bls12_377]",)
+        also["bls12_381 verify"] = ("stacked_mul[bls12_381]",)
         for curve, run in paths:
             for w in wrappers:
                 w.launches = 0
                 w.plain_calls = 0
-                if hasattr(w, "widths"):
-                    w.widths.clear()
+                for counter in ("widths", "shapes"):
+                    if hasattr(w, counter):
+                        getattr(w, counter).clear()
             t0 = time.perf_counter()
             run()
             for w in wrappers:
@@ -2379,6 +2459,9 @@ def main() -> int:
                     r["plain_calls"] = r["_wrapper"].plain_calls
                     if hasattr(r["_wrapper"], "widths"):
                         r["launches_by_width"] = dict(sorted(r["_wrapper"].widths.items()))
+                    if "_shape" in r:  # this row's shape, and every shape of its wrapper on the path
+                        r["launches_of_shape"] = r["_wrapper"].shapes[r["_shape"]]
+                        r["launches_by_shape"] = dict(sorted(r["_wrapper"].shapes.items()))
                     if r["launches"] <= 0:
                         raise AssertionError(f"{r['name']} was never launched on the {curve} path")
             launched = {r["_label"]: r["_wrapper"].launches for r in rows if r["_label"] in also.get(curve, ())}
@@ -2391,11 +2474,13 @@ def main() -> int:
                     if r["_wrapper"] in counted.values():
                         r.setdefault("phase2_launches", {})[curve] = r["_wrapper"].launches
             emit({"phase": "path", "curve": curve, "seconds": time.perf_counter() - t0,
-                  "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched})
+                  "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched,
+                  "watched_launches": {k: w.launches for k, w in watched.items()}})
         ladder_widths_phase(dev, rows)
         for r in rows:
             del r["_wrapper"], r["_label"]
             r.pop("_route", None)
+            r.pop("_shape", None)
             r["path"] = r.pop("_path")
             r["max_abs_diff"] = r["max_abs_err"]  # the name the repo's records use
         breakdown_phase(dev, BATCH)

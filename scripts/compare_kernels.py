@@ -2,7 +2,8 @@
 """Time the hand-written kernels of two trees of the PyTorch/CUDA port on
 one card, in turns.
 
-    python3 scripts/compare_kernels.py --first-form DIR [--kernels k2,k3,k4,k5,k6,k7,k8] [--route-muls]
+    python3 scripts/compare_kernels.py --first-form DIR [--kernels k2,k3,k4,k5,k6,k7,k8,sqrt] [--route-muls]
+        [--launch-weights SMOKE_LOG]
 
 DIR holds another checkout of the repository (for example `git archive` of
 the commit before a kernel's redesign, unpacked under `build/`). The script
@@ -24,7 +25,24 @@ and times, through the wrappers a caller uses:
   (`stacked_product_for(...).k6 / .k7 / .k8`) at chip_smoke.py's
   ROUTE_SHAPES (K5 at all of them, the yardstick) at 1, 17, 4096, 16384
   and 65536 lanes, each process also reporting a checksum of every
-  shape's output at 4097 lanes, which must agree across the turns.
+  shape's output at 4097 lanes, which must agree across the turns; K5
+  also at S = G = 1 (one Fq product, the shape the square root's chains
+  launched before they became one kernel), for the record;
+- sqrt: the decompression square root over Fq through the codec's
+  `ExtSqrt.sqrt` (the call a caller makes: one launch of csrc/fq_sqrt.cu
+  where the tree has it, ~600-1600 one-product launches of K5 where it does
+  not) on BW6-761, BLS12-377 and BLS12-381 at 1, 33, 4097 and 16384 lanes:
+  `sqrt <curve> call <w>` around the whole call (host time included) and
+  `sqrt <curve> kernels <w>` the sum of its launches' events, each process
+  also reporting a checksum of the root and mask at 4097 lanes.
+
+`--launch-weights SMOKE_LOG` reads the `{"kernels": [...]}` line of a
+chip_smoke.py run and weights K5's time at each shape (16384 lanes) by the
+launches of that shape on the default path of its curve (`launches_by_shape`
+of the K5 rows), for every turn: the summary's `k5_launch_weighted` gives
+each turn's weighted milliseconds, the ratio of the trees' best turns and
+each tree's spread — the redesign takes the path if the ratio clears both
+spreads. Shapes of the path that are not timed here carry no weight.
 
 `--route-muls` also runs chip_smoke.py's route scalar-mul phase in each
 turn (the batch scalar-mul under a route switch on BLS12-377 G2, MNT4-753
@@ -67,9 +85,14 @@ REPEATS = 50
 LADDER_REPEATS = 5
 GLV_WIDTHS = (1, 4, 7, 17, 4096, 16384, 65536)
 ROUTE_WIDTHS = (1, 17, 4096, 16384, 65536)
-KERNELS = ("k2", "k3", "k4", "k5", "k6", "k7", "k8")
+SQRT_WIDTHS = (1, 33, 4097, 16384)
+SQRT_REPEATS = 5
+KERNELS = ("k2", "k3", "k4", "k5", "k6", "k7", "k8", "sqrt")
 LIBS = {"k2": ("group_ops",), "k3": ("glv_digits",), "k4": ("glv_ladder",), "k5": ("stacked_mul_nl",),
-        "k6": ("stacked_cols",), "k7": ("stacked_mul_v3",), "k8": ("stacked_mul_v2",)}
+        "k6": ("stacked_cols",), "k7": ("stacked_mul_v3",), "k8": ("stacked_mul_v2",), "sqrt": ("fq_sqrt",)}
+# K5 at one Fq product a launch (S = G = 1), for the record
+K5_RECORD = (("bw6_761", "g1", "Fq product (S=G=1)", ((1,),)),
+             ("bls12_377", "g1", "Fq product (S=G=1)", ((1,),)))
 
 
 def smoke():
@@ -110,7 +133,7 @@ def stacked_shapes(cs, kernel: str) -> list:
     for shapes in cs.ROUTE_SHAPES.values():
         for shape in shapes:
             seen.setdefault(shape[:3], shape)
-    return list(seen.values())
+    return [*seen.values(), *K5_RECORD]
 
 
 def flattened(F, weights):
@@ -208,6 +231,39 @@ def time_tree(defines=(), kernels=KERNELS, route_muls=False) -> dict:
                     words = got.long() & 0xFFFFFFFF  # K6's 32-bit columns read as unsigned
                     out["checksum"][f"{kern} {curve} {label}"] = int(
                         (words * torch.arange(1, got.numel() + 1, device=dev).view_as(got)).sum())
+        if "sqrt" in kernels:
+            from snark_setup_tpu_torch.ops.codec import batch_codec
+
+            for ci, curve in enumerate(("bw6_761", "bls12_377", "bls12_381")):
+                codec = batch_codec(curve, "g1", dev)
+                sq, fq = codec.sqrter, codec.fp
+                # the kernels a square root launches: K5 of the modulus, and
+                # the square-root kernel where this tree has one
+                counters = [codec.F.product.k5]
+                try:
+                    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for
+
+                    counters.append(fq_sqrt_for(sq.q, sq.z_coeffs[0]))
+                except ImportError:
+                    pass
+                rng = np.random.default_rng(cs.SEED + 950 + ci)
+                for w in SQRT_WIDTHS:
+                    a = cs.sqrt_inputs(fq, sq.z_coeffs[0], w, rng, dev)
+                    ms[f"sqrt {curve} call {w}"] = cs.event_ms(lambda: sq.sqrt(a), SQRT_REPEATS)
+                    for c in counters:
+                        c.events = []
+                    for _ in range(SQRT_REPEATS):
+                        sq.sqrt(a)
+                    torch.cuda.synchronize()
+                    ms[f"sqrt {curve} kernels {w}"] = sum(
+                        s.elapsed_time(e) for c in counters for s, e in c.events) / SQRT_REPEATS
+                    for c in counters:
+                        c.events = None
+                    if w == cs.RAGGED:
+                        root, ok = sq.sqrt(a)
+                        out["checksum"][f"sqrt {curve}"] = [
+                            int((root.long() * torch.arange(1, root.numel() + 1, device=dev).view_as(root)).sum()),
+                            int(ok.long().sum())]
         if route_muls:
             from snark_setup_tpu_torch.ops.cuda_routes import stacked_product_for
 
@@ -224,6 +280,46 @@ def time_tree(defines=(), kernels=KERNELS, route_muls=False) -> dict:
     out["sass"] = {t: sass_digest(build._lib_path(t)) for t in build.TARGETS
                    if any(t.startswith(p) for k in kernels for p in LIBS[k])}
     return out
+
+
+def launch_weights(path: str) -> dict:
+    """{(curve, shape_key): launches} from the K5 rows of a chip_smoke.py
+    log's kernels line, each on the default path of its curve."""
+    with open(path) as f:
+        line = next(ln for ln in f if ln.startswith('{"kernels"'))
+    weights = {}
+    for row in json.loads(line)["kernels"]:
+        if row["name"].startswith("stacked_mul[") and row.get("path") == row["name"][12:].split()[0]:
+            for key, n in row.get("launches_by_shape", {}).items():
+                weights[(row["path"], key)] = n
+    return weights
+
+
+def k5_weighted(runs, weights: dict) -> dict:
+    """K5's launch-weighted milliseconds per turn at 16384 lanes."""
+    cs = smoke()
+    from snark_setup_tpu_torch.ops.cuda_mul import shape_key
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    terms = []
+    for curve, group, label, wts in stacked_shapes(cs, "k5"):
+        comp, _ = flattened(curve_ops(curve, group).field, wts)
+        n = weights.get((curve, shape_key(comp)), 0)
+        if n:
+            terms.append((f"k5 {curve} {label} {cs.BATCH}", n))
+    turns = [(label, sum(n * r["ms"][name] for name, n in terms)) for label, r in runs if "k5" in
+             {k.split()[0] for k in r["ms"]}]
+    best = {}
+    spread = {}
+    for label in {t[0] for t in turns}:
+        vals = [v for lab, v in turns if lab == label]
+        best[label] = min(vals)
+        spread[label] = max(vals) / min(vals) if len(vals) > 1 else None
+    ratio = best["first form"] / best["redesign"] if {"first form", "redesign"} <= best.keys() else None
+    clears = ratio is not None and all(s is not None and ratio > s for s in
+                                       (spread.get("first form"), spread.get("redesign")))
+    return {"shapes": dict(terms), "turns": turns, "best": best, "spread": spread,
+            "ratio_first_over_redesign": ratio, "redesign_takes_the_path": clears}
 
 
 def bounds(kernels) -> dict:
@@ -257,6 +353,15 @@ def bounds(kernels) -> dict:
                 work = cs.stacked_work(F.fp, comp, SU, SU, w) if kern == "k5" else \
                     cs.route_work(kern, F.fp, comp, SU, SU, w)
                 out[f"{kern} {curve} {label} {w}"] = cs.bound(*work)
+    from snark_setup_tpu_torch.ops.codec import ExtSqrt
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for
+
+    for curve in ("bw6_761", "bls12_377", "bls12_381"):
+        F = curve_ops(curve, "g1").field
+        sq = ExtSqrt(F, F.fp.modulus)
+        K = fq_sqrt_for(sq.q, sq.z_coeffs[0])
+        for w in SQRT_WIDTHS:
+            out[f"sqrt {curve} kernels {w}"] = out[f"sqrt {curve} call {w}"] = cs.bound(*cs.sqrt_work(K, w))
     return {k: v for k, v in out.items() if k.split()[0] in kernels}
 
 
@@ -268,6 +373,7 @@ def main() -> int:
                     help="also sum each stacked-product kernel's seconds in the route scalar-mul phase")
     ap.add_argument("--variants", nargs="*", default=[],
                     help="variants of this tree to time, each PREFIX:NAME=VALUE[,PREFIX:NAME=VALUE]")
+    ap.add_argument("--launch-weights", help="a chip_smoke.py log: weight K5's shapes by their launches")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "compare_kernels.json"),
                     help="where to write the summary (JSON)")
     ap.add_argument("--time-tree", help=argparse.SUPPRESS)  # child: time the package under this root
@@ -347,6 +453,8 @@ def main() -> int:
             "spread_redesign": max(new_ms) / min(new_ms) if len(new_ms) > 1 else None,
             "bound_ms": b[0] if b else None, "bound_by": b[1] if b else None,
         })
+    if args.launch_weights and "k5" in kernels:
+        summary["k5_launch_weighted"] = k5_weighted(runs, launch_weights(args.launch_weights))
     with open(out, "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps(summary), flush=True)

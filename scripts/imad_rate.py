@@ -24,7 +24,10 @@ clock and SM at the card's current SM clock as `nvidia-smi` reads it after
 the run, with the card's name and power limit; and `k6_floor_ms`, K6's own
 floor at each of chip_smoke.py's ROUTE_SHAPES["k6"] shapes and its BATCH
 lanes: L^2 16x16 limb products per lane and non-zero weight at the `lo_hi`
-rate of this run. Exits non-zero without a card. The chains feed each other (step s of chain c reads chain c + 1's
+rate of this run; `k5_floor_ms`, K5's floor (both forms) at its eight
+stacked shapes from its IMAD.WIDE count at the `mad_wide` rate; and
+`sqrt_floor_ms`, the square-root kernel's at chip_smoke.py's SQRT_CURVES
+from its IMAD / IMAD.HI counts at the `mad_lo` / `mad_hi` rates. Exits non-zero without a card. The chains feed each other (step s of chain c reads chain c + 1's
 value from step s - 1), so no compiler can fold a chain into fewer
 operations.
 """
@@ -135,6 +138,58 @@ def k6_floors(products_per_s: float) -> dict:
     return out
 
 
+def k5_floors(wide_per_s: float, lo_per_s: float) -> dict:
+    """Milliseconds K5 needs at chip_smoke.py's eight stacked shapes and
+    batch for its multiply-adds alone, each form's count of them at this
+    run's rates: IMAD.WIDE (a 32x32 -> 64-bit multiply-add) at `wide_per_s`,
+    the reduction's quotient words (IMAD, one a row) at `lo_per_s`. Per lane
+    and output group, per non-zero weight: the first form w u (NL) and NL
+    rows of NL + 1; the redesign three Karatsuba half products of (NL / 2)^2
+    and, for a weight other than 1, 2 NL to apply it. Per output group both
+    reduce with NL rows of NL."""
+    import chip_smoke as cs
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    shapes = {}
+    for kern in ("k6", "k7", "k8"):
+        for shape in cs.ROUTE_SHAPES[kern]:
+            shapes.setdefault(shape[:3], shape)
+    out = {"first form": {}, "redesign": {}}
+    for curve, group, label, weights in shapes.values():
+        F = curve_ops(curve, group).field
+        comp = weights if F.degree == 1 else F._flattened(weights, len(weights[0]))[0]
+        NL, G = F.fp.L // 2, len(comp)
+        nz = [w for g in comp for w in g if w]
+        first = len(nz) * (NL + NL * (NL + 1)) + G * NL * NL
+        redesign = sum(3 * (NL // 2) ** 2 + (2 * NL if w != 1 else 0) for w in nz) + G * NL * NL
+        for form, wide in (("first form", first), ("redesign", redesign)):
+            out[form][f"{curve} {label}"] = cs.BATCH * (wide / wide_per_s + G * NL / lo_per_s) * 1e3
+    return out
+
+
+def sqrt_floors(lo_per_s: float, hi_per_s: float) -> dict:
+    """Milliseconds the square-root kernel needs at chip_smoke.py's batch
+    for its multiply-adds alone: per team product (csrc/field_team.cuh:
+    team_mont) 2 NL^2 mad.lo (IMAD) and 2 NL^2 mad.hi (IMAD.HI) in the
+    operand and reduction chains, and NL quotient words on each of the
+    TEAM threads (IMAD), at this run's rates."""
+    import chip_smoke as cs
+    from snark_setup_tpu_torch.ops.codec import ExtSqrt
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for
+    from snark_setup_tpu_torch.ops.curve import curve_ops
+
+    out = {}
+    for curve in cs.SQRT_CURVES:
+        F = curve_ops(curve, "g1").field
+        sq = ExtSqrt(F, F.fp.modulus)
+        K = fq_sqrt_for(sq.q, sq.z_coeffs[0])
+        NL = K.NL
+        team = 4 if NL == 12 else 8  # csrc/field_team.cuh's default TEAM
+        per_product = (2 * NL * NL + NL * team) / lo_per_s + 2 * NL * NL / hi_per_s
+        out[curve] = cs.BATCH * K.products() * per_product * 1e3
+    return out
+
+
 def smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"], check=True,
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -180,7 +235,10 @@ def main() -> int:
         result["forms"][name] = {"ms": secs * 1e3, "ops_per_s": ops / secs,
                                  "per_clock_per_sm": ops / secs / (clock_mhz * 1e6) / sms,
                                  "sm_clock_mhz_after": clock_mhz}
-    result["k6_floor_ms"] = k6_floors(result["forms"]["lo_hi"]["ops_per_s"])
+    rate = {name: form["ops_per_s"] for name, form in result["forms"].items()}
+    result["k6_floor_ms"] = k6_floors(rate["lo_hi"])
+    result["k5_floor_ms"] = k5_floors(rate["mad_wide"], rate["mad_lo"])
+    result["sqrt_floor_ms"] = sqrt_floors(rate["mad_lo"], rate["mad_hi"])
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)

@@ -27,8 +27,8 @@ NVCC_FLAGS = [
 ]
 
 # library name -> (source file, extra defines). The ladder, the group
-# operations and the stacked products (K5 and the opt-in routes' K6, K7,
-# K8) are instantiated once per limb count
+# operations, the stacked products (K5 and the opt-in routes' K6, K7,
+# K8) and the square root are instantiated once per limb count
 # (NL 32-bit limbs = L/2: 12 for BLS12-377/381's Fq, 24 for BW6-761's and
 # the MNT curves'): separate libraries build in parallel and keep each
 # compilation unit small. The digits kernel is instantiated once per curve
@@ -54,6 +54,8 @@ TARGETS = {
     "stacked_mul_v3_nl24": ("stacked_mul_v3.cu", ["-DNL=24"]),
     "stacked_mul_v2_nl12": ("stacked_mul_v2.cu", ["-DNL=12"]),
     "stacked_mul_v2_nl24": ("stacked_mul_v2.cu", ["-DNL=24"]),
+    "fq_sqrt_nl12": ("fq_sqrt.cu", ["-DNL=12"]),
+    "fq_sqrt_nl24": ("fq_sqrt.cu", ["-DNL=24"]),
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,7 @@ from ..fields.limb import int_to_limbs
 from ..utils.device import resolve_device
 from ..utils.enums import CheckForCorrectness, SubgroupCheckMode, UseCompression
 from ..utils.errors import IncorrectSubgroupError, PointAtInfinityError, SerializationError
+from .cuda_sqrt import fq_sqrt_for
 from .curve import CurveOps, PointVec, curve_ops
 from .fp import _sub_with_borrow
 from .hostmath import host_ext_one, host_ext_pow
@@ -35,33 +36,24 @@ def _batch_shape(F, arr):
     return arr.shape[1:] if F.degree == 1 else arr.shape[2:]
 
 
-def ext_pow_const(F, a, e: int, mul):
-    """a^e in a field-ops object for a host-known (public) exponent, with
-    the product `mul`; the exponent is public, so zero bits skip the
-    multiply."""
+def ext_pow_const(F, a, e: int):
+    """a^e in a field-ops object for a host-known (public) exponent; the
+    exponent is public, so zero bits skip the multiply."""
     if e == 0:
         return F.ones(_batch_shape(F, a), a.device)
     acc = a
     for bit in bin(e)[3:]:
-        acc = mul(acc, acc)
+        acc = F.mul(acc, acc)
         if bit == "1":
-            acc = mul(acc, a)
+            acc = F.mul(acc, a)
     return acc
 
 
-def _chain_mul(F):
-    """The product of the square root's chains. A tower's products already
-    launch the stacked-product route; Fq's `mul` is the plain layer's
-    (~100 dispatched operators), so here an Fq product is a one-product
-    stack on that route: one launch on the card, the plain version on the
-    CPU, the same canonical value."""
-    if F.degree != 1:
-        return F.mul
-    return lambda a, b: F.mul_stacked(a[:, None], b[:, None], ((1,),), 1)[:, 0]
-
-
 class ExtSqrt:
-    """Branchless Tonelli–Shanks over Fp / Fp2 / Fp3 on device."""
+    """Branchless Tonelli–Shanks over Fp / Fp2 / Fp3 on device. Over Fq the
+    whole chain is one launch of the square-root kernel (ops/cuda_sqrt.py;
+    its plain version on the CPU); over Fp2 / Fp3 every product is a round
+    of the tower's stacked-product route."""
 
     def __init__(self, F, q: int):
         self.F = F
@@ -98,25 +90,26 @@ class ExtSqrt:
         """(root, is_square mask). The loop bounds depend only on the
         field's 2-adicity, never on the data."""
         F = self.F
-        mul = _chain_mul(F)
+        if F.degree == 1:
+            return fq_sqrt_for(self.q, self.z_coeffs[0])(a)
         if self.e == 1:
-            r = ext_pow_const(F, a, (self.group_order + 2) // 4, mul)
-            ok = F.eq(mul(r, r), a) | F.is_zero(a)
+            r = ext_pow_const(F, a, (self.group_order + 2) // 4)
+            ok = F.eq(F.mul(r, r), a) | F.is_zero(a)
             return r, ok
-        w = ext_pow_const(F, a, (self.s - 1) // 2, mul)
-        r = mul(a, w)
-        t = mul(r, w)
+        w = ext_pow_const(F, a, (self.s - 1) // 2)
+        r = F.mul(a, w)
+        t = F.mul(r, w)
         c = F.const(("sqrt_c", self.q, F.degree), self.c_init(), a).expand_as(a)
         one = F.ones(_batch_shape(F, a), a.device)
         for i in range(self.e, 1, -1):
             b = t
             for _ in range(i - 2):
-                b = mul(b, b)
+                b = F.mul(b, b)
             flip = ~F.eq(b, one)
-            r = F.select(flip, mul(r, c), r)
-            c = mul(c, c)
-            t = F.select(flip, mul(t, c), t)
-        ok = F.eq(mul(r, r), a) | F.is_zero(a)
+            r = F.select(flip, F.mul(r, c), r)
+            c = F.mul(c, c)
+            t = F.select(flip, F.mul(t, c), t)
+        ok = F.eq(F.mul(r, r), a) | F.is_zero(a)
         return r, ok
 
 

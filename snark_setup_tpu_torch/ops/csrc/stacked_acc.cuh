@@ -1,7 +1,7 @@
-// The exact weighted accumulation of the stacked product, shared by K5
-// (stacked_mul.cu) and K7 (stacked_mul_v3.cu): one thread's (2 NL + 1)-word
-// sum of w * u * v over the stacked rows, in registers (a weight times a
-// 2 NL-word product needs the extra word). The text is K5's, unchanged.
+// The exact weighted accumulation of K7 (stacked_mul_v3.cu): one thread's
+// (2 NL + 1)-word sum of w * u * v over the stacked rows, in registers (a
+// weight times a 2 NL-word product needs the extra word). The text is K5's
+// first form (stacked_mul.cu before its redesign), unchanged.
 #pragma once
 #include <cstdint>
 

@@ -1,6 +1,6 @@
-// Shared pieces of the stacked product's opt-in routes K6, K7 and K8: the
-// row maps, the modulus by value with the conditional negation that reads
-// it, and the shared-memory opt-in. K6's column schoolbook is in
+// Shared pieces of the stacked product's kernels (K5 and the opt-in routes
+// K6, K7 and K8): the row maps, the modulus by value with the conditional
+// negation that reads it, and the shared-memory opt-in. K6's column schoolbook is in
 // stacked_cols.cu, K7 and K8's reduction in toeplitz_tc.cuh.
 #pragma once
 #include <cuda_runtime.h>
@@ -33,8 +33,7 @@ struct TcConsts {
     uint32_t N[NL];
 };
 
-// field.cuh's cond_neg with N by value (that one reads the constant-memory
-// block that K5 uploads before each launch)
+// r = -a mod N where neg is 1, a where it is 0 (0 stays 0), N by value
 __device__ __forceinline__ void cond_neg_n(uint32_t* a, uint32_t neg, const uint32_t* N) {
     uint32_t d[NL];
     uint32_t nz = 0;
@@ -49,6 +48,21 @@ __device__ __forceinline__ void cond_neg_n(uint32_t* a, uint32_t neg, const uint
     const uint32_t m = (neg && nz) ? 0xFFFFFFFFu : 0u;
 #pragma unroll
     for (int j = 0; j < NL; ++j) a[j] = (d[j] & m) | (a[j] & ~m);
+}
+
+// r = t - N if t >= N else t   (t < 2N), N by value
+__device__ __forceinline__ void cond_sub_n(uint32_t* r, const uint32_t* t, const uint32_t* N) {
+    uint32_t d[NL];
+    int64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+        c += (int64_t)t[j] - (int64_t)N[j];
+        d[j] = (uint32_t)c;
+        c >>= 32;
+    }
+    const uint32_t keep = (uint32_t)c;  // all ones where t < N
+#pragma unroll
+    for (int j = 0; j < NL; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
 }
 
 // Shared memory above the default 48 KB needs the opt-in attribute, set

@@ -54,21 +54,8 @@
 #define TL_BYTES (M1 * KS * 512)
 #define TC_BYTES ((M1 + M2) * KS * 512)
 
-// TcConsts (the modulus by value) and cond_neg_n are in stacked_routes.cuh,
-// shared with K6; cond_sub_n is field.cuh's cond_sub_store with N by value.
-__device__ __forceinline__ void cond_sub_n(uint32_t* r, const uint32_t* t, const uint32_t* N) {
-    uint32_t d[NL];
-    int64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; ++j) {
-        c += (int64_t)t[j] - (int64_t)N[j];
-        d[j] = (uint32_t)c;
-        c >>= 32;
-    }
-    const uint32_t keep = (uint32_t)c;  // all ones where t < N
-#pragma unroll
-    for (int j = 0; j < NL; ++j) r[j] = (t[j] & keep) | (d[j] & ~keep);
-}
+// TcConsts (the modulus by value), cond_neg_n and cond_sub_n are in
+// stacked_routes.cuh, shared with K5 and K6.
 
 #define TC_RB (32 * KS + 16)  // bytes a lane row of bc
 #define TC_YS 40              // words a row of ys (32 lanes, = 8 mod 32)

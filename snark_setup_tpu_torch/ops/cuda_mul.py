@@ -18,8 +18,10 @@ reference's PallasFieldMul.__call__ (ops/pallas_field.py).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import hashlib
 
 import numpy as np
 import torch
@@ -43,12 +45,20 @@ def stacked_mul_plain(fq: FpOps, U: torch.Tensor, V: torch.Tensor, weights) -> t
     return fq.redc_cols(torch.stack(groups, dim=1), nprod)
 
 
+@functools.lru_cache(maxsize=None)
+def shape_key(weights) -> str:
+    """A short name of one launch shape: S, G and a digest of the weights
+    (two rounds of one S and G differ in their weights)."""
+    digest = hashlib.sha1(repr(tuple(tuple(g) for g in weights)).encode()).hexdigest()[:8]
+    return f"S{len(weights[0])}G{len(weights)}-{digest}"
+
+
 class StackedMul:
-    """K5 wrapper for one modulus; keeps the kernel's field constants and
-    weight tables per device and counts launches. The opt-in routes' kernels
-    (ops/cuda_routes.py) share its arguments, checks and tables and replace
-    the library (`TARGET`), the output, the extra launch arguments and the
-    plain version."""
+    """K5 wrapper for one modulus; keeps the kernel's by-value constants and
+    per-device weight tables and counts launches (`shapes`: by weight
+    shape). The opt-in routes' kernels (ops/cuda_routes.py) share its
+    arguments, checks and tables and replace the library (`TARGET`), the
+    output, the extra launch arguments and the plain version."""
 
     TARGET = "stacked_mul"
     EXTRA_ARGTYPES: tuple = ()
@@ -66,14 +76,14 @@ class StackedMul:
             return [(v >> (32 * i)) & 0xFFFFFFFF for i in range(self.NL)]
 
         n0 = (-pow(q, -1, 1 << 32)) % (1 << 32)
-        consts = words(q) + words(fq.spec.mont_r % q) + [0] * self.NL + [n0]
-        self._consts_np = np.array(consts, np.uint32).view(np.int32)
-        self._consts_dev: dict = {}
+        # csrc/stacked_mul.cu's K5Consts (N, n0), by value into the kernel's parameter
+        self._consts_np = np.array(words(q) + [n0], np.uint32)
         self._tables: dict = {}
         self._checked: set = set()
         self._fn = None
         self._lib = None
         self.launches = 0
+        self.shapes: collections.Counter = collections.Counter()  # launches by `shape_key`
         self.plain_calls = 0
         # when set to a list, every launch appends its (start, end) CUDA
         # timing events: lets a caller sum the time spent inside the kernel
@@ -189,12 +199,9 @@ class StackedMul:
         return torch.empty((self.L, G, B), dtype=torch.int32, device=dev)
 
     def _consts_ptr(self, dev) -> int:
-        """The launch's `consts` argument: a device copy of the FieldConsts
-        block, which the kernel uploads to constant memory."""
-        consts = self._consts_dev.get(dev)
-        if consts is None:
-            consts = self._consts_dev[dev] = torch.from_numpy(self._consts_np).to(dev)
-        return consts.data_ptr()
+        """The launch's `consts` argument: a HOST pointer to the constants
+        block the kernel takes by value."""
+        return self._consts_np.ctypes.data
 
     def _extra_args(self, weights, dev) -> tuple:
         """Launch arguments after the field constants (EXTRA_ARGTYPES)."""
@@ -222,6 +229,7 @@ class StackedMul:
         if err != 0:
             raise RuntimeError(f"{self.TARGET} kernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.shapes[shape_key(weights)] += 1
         if self.events is not None:
             end = torch.cuda.Event(enable_timing=True)
             end.record(stream)

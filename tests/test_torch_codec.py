@@ -142,18 +142,29 @@ def test_checks_for_correctness():
 
 @pytest.mark.parametrize("curve,group", GROUPS)
 def test_square_root_chain_runs_on_the_stacked_product(curve, group):
-    """Decompression's square root multiplies through the field's
-    stacked-product route in every field, Fq included (on a CPU tensor:
-    K5's counted plain version): the root of y^2 squares back to it, and a
-    non-residue times y^2 is flagged as no square."""
+    """Decompression's square root: over Fq the whole chain is the
+    square-root kernel's wrapper (on a CPU tensor its counted plain
+    version, and no product of K5's); over Fp2 / Fp3 it multiplies through
+    the field's stacked-product route (K5's counted plain version). The root
+    of y^2 squares back to it, and a non-residue times y^2 is flagged as no
+    square."""
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for
+
     codec, host, pts = _setup(curve, group, with_infinity=False)
     F = codec.F
     K = F.product.k5
     pv = codec.read_batch(b"".join(host.serialize(p, UseCompression.NO) for p in pts), UseCompression.NO)
     rhs = codec.rhs(pv["x"])
     before = K.plain_calls
+    if F.degree == 1:
+        chain = fq_sqrt_for(codec.sqrter.q, codec.sqrter.z_coeffs[0])
+        chain_before = chain.plain_calls
     r, ok = codec.sqrter.sqrt(rhs)
-    assert K.plain_calls > before
+    if F.degree == 1:
+        assert chain.plain_calls == chain_before + 1
+        assert K.plain_calls == before
+    else:
+        assert K.plain_calls > before
     assert bool(ok.all()) and bool(F.eq(F.mul(r, r), rhs).all())
     z = F.const(("test non-residue", curve, group), F.from_coeffs([codec.sqrter.z_coeffs]), rhs)
     _, ok = codec.sqrter.sqrt(F.mul(rhs, z.expand_as(rhs)))

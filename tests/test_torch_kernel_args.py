@@ -20,6 +20,13 @@ The ladder K4 (ops/cuda_ladder.py) and the digits kernel K3
   padding and all), which must give `glv_digits_plain`'s digits and signs;
   and the build targets' geometry against every GLV curve's.
 
+The stacked product K5 (ops/cuda_mul.py), whose modulus constants reach
+the kernel by value since its redesign:
+
+- `StackedMul._consts_np`: csrc/stacked_mul.cu's K5Consts block (N, n0),
+  word for word against the Python integers, and handed to the launch as
+  a host pointer (no device copy).
+
 No JAX compiles; `torch.set_num_threads(1)` as in the other port tests.
 """
 
@@ -251,3 +258,18 @@ def test_digits_build_targets_carry_the_curves_geometry(curve):
     for group in ("g1", "g2"):
         assert {k: int(v) for k, v in defines.items()} == {
             f"DIG_{k}": v for k, v in digits_geometry(curve_ops(curve, group)).items()}
+
+
+@pytest.mark.parametrize("curve", CURVES)
+def test_stacked_mul_consts_bytes_equal_the_python_integers(curve):
+    from snark_setup_tpu_torch.ops.cuda_mul import stacked_mul_for
+
+    q = get_curve(curve).q
+    K = stacked_mul_for(q)
+    NL = K.NL
+    raw = K._consts_np.tobytes()
+    assert len(raw) == 4 * (NL + 1)  # struct K5Consts { N[NL]; n0; }: no padding
+    assert int.from_bytes(raw[: 4 * NL], "little") == q
+    n0 = int.from_bytes(raw[4 * NL :], "little")
+    assert (n0 * q) % (1 << 32) == (1 << 32) - 1  # n0 = -N^{-1} mod 2^32
+    assert K._consts_ptr(torch.device("cuda")) == K._consts_np.ctypes.data  # host memory, by value

@@ -661,3 +661,39 @@ def test_k6_row_maps_negation_views_and_column_bound_on_the_card(curve):
         with pytest.raises(ValueError):
             K(U[:, :1], V[:, :1], w)
     assert K.launches == n
+
+
+SQRT_CURVES = ["bls12_377", "bls12_381", "bw6_761", "mnt4_753", "mnt6_753"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33, 4097, 16385])
+@pytest.mark.parametrize("curve", SQRT_CURVES)
+def test_sqrt_kernel_equals_plain_version_on_the_card(curve, B):
+    """The square-root kernel (csrc/fq_sqrt.cu) against `fq_sqrt_plain` on
+    the card, root and mask limb for limb, on every base field (2-adicity
+    1, 46, 15 and 30), with 0, 1, q - 1, the non-residue z and z times a
+    square in lanes 0-4 (as far as the width goes) and random values,
+    half of them squares, elsewhere. Through the codec's ExtSqrt it is one
+    launch and no launch of the stacked-product kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from chip_smoke import sqrt_inputs
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_sqrt_for, fq_sqrt_plain
+
+    dev = torch.device("cuda")
+    codec = batch_codec(curve, "g1", dev)
+    fq, z = codec.fp, codec.sqrter.z_coeffs[0]
+    q = fq.modulus
+    a = sqrt_inputs(fq, z, B, np.random.default_rng(61 + B), dev)
+    K = fq_sqrt_for(q, z)
+    k5 = codec.F.product.k5
+    n, n5 = K.launches, k5.launches
+    with torch.no_grad():
+        root, ok = codec.sqrter.sqrt(a)
+        torch.cuda.synchronize()
+        assert (K.launches, k5.launches) == (n + 1, n5)
+        want_root, want_ok = fq_sqrt_plain(fq, z, a)
+    assert torch.equal(root, want_root) and torch.equal(ok, want_ok)
+    assert ok[: min(B, 5)].tolist() == [True, True, pow(q - 1, (q - 1) // 2, q) == 1, False, False][: min(B, 5)]
