@@ -41,7 +41,20 @@ threads a lane for the whole chain), held against `fq_sqrt_plain` at 1, 33,
 4097 and 16384 lanes with 0, 1, q - 1 and non-squares in every run; its
 rows (BW6-761, BLS12-377, BLS12-381) belong to the verify paths, where it
 must launch. K5 launches on the BW6-761 verify path are reported (none is
-expected: that path's only K5 products were the square root's).
+expected: that path's only K5 products were the square root's). The same
+library's second entry point raises to a public exponent: at q - 2 it is
+the inversion at the root of every batch inversion (`FpOps.inv` on the
+card, one launch a write-back), held against `fq_pow_plain` at 1, 2, 33
+and 4097 lanes with 0, 1 and q - 1 among them on all five base fields and
+timed at the one lane the main path gives it; its rows belong to the
+contribute paths. The contribute, verify and streaming phase-2 paths run
+their write-backs and checks through bounded pipelines
+(`snark_setup_tpu_torch/utils/pipeline.py`); one `{"phase": "pipeline"}`
+line each gives the depth in use, the most finishes pending at once, the
+wall and the kernel seconds. After the paths, a response with two faults
+in one batch (a point outside the subgroup in tau_g1, then a point at
+infinity in tau_g2) must be rejected by the read's PointAtInfinityError on
+the card and on the CPU.
 
 Each phase prints one JSON line. Near the end it prints one
 `{"kernels": [...]}` line with, per kernel and configuration: the launches
@@ -197,6 +210,8 @@ BLS12_381_STACKED = (
 # the decompression square root over Fq (ops/cuda_sqrt.py), one launch a
 # batch, on the verify path that decompresses that field's points
 SQRT_CURVES = ("bw6_761", "bls12_377", "bls12_381")
+INV_CURVES = ("bw6_761", "bls12_377", "bls12_381", "mnt4_753", "mnt6_753")  # each row on that curve's contribute path
+INV_WIDTHS = (1, 2, 33, RAGGED)
 SQRT_WIDTHS = (1, 33, RAGGED, BATCH)
 # the opt-in routes' kernels: K6 and K7 at every K5 shape above; K8 only
 # where v2_supported holds (degree-1 rounds with small weight sums)
@@ -593,6 +608,77 @@ def compare_sqrt(dev, batch: int) -> list[dict]:
     return rows
 
 
+def inv_inputs(fq, B: int, rng, dev):
+    """(L, B) Montgomery planes: 0, 1 and q - 1 in lanes 0-2 (as far as B
+    goes), random values elsewhere."""
+    q = fq.modulus
+    vals = [int.from_bytes(rng.bytes(q.bit_length() // 8 + 8), "little") % q for _ in range(B)]
+    vals[: min(B, 3)] = [0, 1, q - 1][: min(B, 3)]
+    return fq.tensor(fq.from_int(vals), dev)
+
+
+def inv_work(K, B: int) -> tuple[int, int]:
+    """Bytes (the operand read once, the inverse written once) and 32-bit
+    multiply-adds (2 NL^2 a Montgomery product) of one inversion launch at
+    B lanes."""
+    return 4 * B * 2 * K.L, B * K.products() * 2 * K.NL * K.NL
+
+
+def compare_inv(dev) -> list[dict]:
+    """The power kernel at q - 2 (the batch inversion's root) against its
+    plain version on the card at INV_WIDTHS, with 0, 1 and q - 1 in every
+    run; `FpOps.inv` must be one launch of it. Timed by its launch events
+    at one lane, the width every write-back gives it."""
+    import numpy as np
+    import torch
+
+    from snark_setup_tpu_torch.ops.codec import batch_codec
+    from snark_setup_tpu_torch.ops.cuda_sqrt import fq_inv_for, fq_pow_plain
+
+    rows = []
+    for ci, curve in enumerate(INV_CURVES):
+        fq = batch_codec(curve, "g1", dev).fp
+        q = fq.modulus
+        K = fq_inv_for(q)
+        rng = np.random.default_rng(SEED + 650 + ci)
+        err = 0
+        plain_ms = {}
+        for B in INV_WIDTHS:
+            a = inv_inputs(fq, B, rng, dev)
+            n = K.launches
+            got = fq.inv(a)
+            torch.cuda.synchronize()
+            if K.launches != n + 1:
+                raise AssertionError(f"fq_inv {curve}: FpOps.inv is not one launch of the kernel")
+            t0 = time.perf_counter()
+            want = fq_pow_plain(fq, q - 2, a)
+            torch.cuda.synchronize()
+            plain_ms[B] = (time.perf_counter() - t0) * 1e3
+            err = max(err, max_abs_diff(got, want))
+            if err:
+                raise AssertionError(f"fq_inv {curve} B={B}: kernel differs from plain version")
+            vals, inv = fq.to_int(a[:, : min(B, 4)]), fq.to_int(got[:, : min(B, 4)])
+            if any((v * w - 1) % q if v else w for v, w in zip(vals, inv)):
+                raise AssertionError(f"fq_inv {curve} B={B}: not the inverse")
+        one = inv_inputs(fq, 1, rng, dev)
+        ms = launch_ms(K, lambda: K(one), 10)
+        wide = inv_inputs(fq, RAGGED, rng, dev)
+        wide_ms = launch_ms(K, lambda: K(wide), 3)
+        b_ms, b_by = bound(*inv_work(K, 1))
+        rows.append({
+            "name": f"fq_inv[{curve}]", "route": "cuda",
+            "source": "snark_setup_tpu_torch/ops/csrc/fq_sqrt.cu",
+            "replaces": "snark_setup_tpu/ops/pallas_field.py:498", "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms[1], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "batch": 1, "widths": list(INV_WIDTHS), "lanes_ms": {"1": ms, str(RAGGED): wide_ms},
+            "team": K.team, "products": K.products(), "_wrapper": K, "_path": curve, "_label": f"fq_inv[{curve}]",
+        })
+        emit({"phase": "kernels", "config": f"fq_inv {curve}", "widths": list(INV_WIDTHS),
+              "edge_values": [0, 1, "q-1"], "equal": True, "ms": {"kernel": ms, "plain": plain_ms[1]},
+              "plain_ms_by_width": plain_ms, "products_a_lane": K.products()})
+    return rows
+
+
 def route_work(route: str, fq, weights, SU: int, SV: int, B: int) -> tuple[int, int, int]:
     """(bytes, 32-bit multiply-adds, int8 tensor-core multiply-adds) of the
     function one launch of a route's kernel computes, counted as
@@ -957,6 +1043,7 @@ def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
     from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
     from snark_setup_tpu_torch.phase1.protocol import Phase1
     from snark_setup_tpu_torch.transcript.hashing import calculate_hash, derive_rng_from_seed
+    from snark_setup_tpu_torch.utils import pipeline
     from snark_setup_tpu_torch.utils.enums import (
         BatchExpMode, CheckForCorrectness, ProvingSystem, UseCompression,
     )
@@ -1012,13 +1099,15 @@ def contribute_phase(dev, curve: str, power: int, batch: int, wrappers: dict,
                 emit({"phase": "contribute", "curve": curve,
                       "step": "uncompressed accumulator via Phase1.computation", "seconds": t_mid})
             n_events = {k: len(w.events) for k, w in wrappers.items()}
-            secs = cli(*common, "--seed", path(f"seed{tag}"), "contribute",
-                       "--challenge-fname", path(chal), "--challenge-hash-fname", path(chal + ".hash"),
-                       "--response-fname", path(f"response{tag}"),
-                       "--response-hash-fname", path(f"response{tag}.hash"))
+            with pipeline.recording() as pipes:
+                secs = cli(*common, "--seed", path(f"seed{tag}"), "contribute",
+                           "--challenge-fname", path(chal), "--challenge-hash-fname", path(chal + ".hash"),
+                           "--response-fname", path(f"response{tag}"),
+                           "--response-hash-fname", path(f"response{tag}.hash"))
             kernel_ms = {
                 k: sum(s.elapsed_time(e) for s, e in w.events[n_events[k]:]) for k, w in wrappers.items()
             }
+            pipeline_line(f"{curve} contribute {tag}", pipes, secs, sum(kernel_ms.values()) / 1e3)
             challenge, response = read(chal), read(f"response{tag}")
             _, key = Phase1.key_generation(
                 params.spec, derive_rng_from_seed(seeds[tag]), calculate_hash(challenge))
@@ -1476,6 +1565,7 @@ def verify_phase(dev, curve: str, power: int, batch: int, workdir: str, rejectio
     from snark_setup_tpu_torch.phase1.buffers import split
     from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
     from snark_setup_tpu_torch.serialize.arkworks import g1_codec, g2_codec
+    from snark_setup_tpu_torch.utils import pipeline
     from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, ProvingSystem, UseCompression
     from snark_setup_tpu_torch.utils.errors import (
         IncorrectSubgroupError, InvalidRatioError, VerificationFailedError,
@@ -1509,8 +1599,10 @@ def verify_phase(dev, curve: str, power: int, batch: int, workdir: str, rejectio
 
     for w in wrappers.values():
         w.events = []
-    secs = verify("response1", "new_challenge1")
+    with pipeline.recording() as pipes:
+        secs = verify("response1", "new_challenge1")
     kernel_ms = {k: sum(a.elapsed_time(b) for a, b in w.events) for k, w in wrappers.items()}
+    pipeline_line(f"{curve} verify", pipes, secs, sum(kernel_ms.values()) / 1e3)
     challenge, response, new = read("challenge1"), read("response1"), read("new_challenge1")
     hashes_ok = (
         new[:64] == blake(response)
@@ -1581,6 +1673,56 @@ def verify_phase(dev, curve: str, power: int, batch: int, workdir: str, rejectio
               "cause": f"{type(cause).__name__}: {cause}", "seconds": time.perf_counter() - t0})
 
 
+def two_fault_phase(dev) -> None:
+    """A BLS12-377 response (power 2, batch 4, built on the host) with a
+    point outside the subgroup at tau_g1[2] and a point at infinity at
+    tau_g2[2]: `verification` must raise the read's PointAtInfinityError on
+    the card, as on the CPU and in the reference, whose subgroup check of
+    the first section runs after the next two sections' reads. Run after
+    the paths: its CPU leg runs plain versions."""
+    import random
+
+    from snark_setup_tpu_torch.phase1.keys import PublicKey
+    from snark_setup_tpu_torch.phase1.parameters import Phase1Parameters
+    from snark_setup_tpu_torch.phase1.protocol import Phase1
+    from snark_setup_tpu_torch.phase1.testing import generate_output, two_fault_response
+    from snark_setup_tpu_torch.utils.enums import (
+        CheckForCorrectness, ProvingSystem, SubgroupCheckMode, UseCompression,
+    )
+
+    t = two_fault_response("verification")
+    params = Phase1Parameters.new_full("bls12_377", ProvingSystem.GROTH16, 2, 4)
+    raised, seconds = {}, {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        try:
+            Phase1.verification(t["input"], t["output"], generate_output(params, UseCompression.NO),
+                                PublicKey.deserialize(params.spec, t["key"]), t["digest"],
+                                UseCompression.NO, UseCompression.YES, UseCompression.NO,
+                                CheckForCorrectness.NO, CheckForCorrectness.FULL, SubgroupCheckMode.AUTO, True,
+                                params, rlc_rng=random.Random(7), device=where)
+        except Exception as e:  # the class is what is checked
+            raised[str(where)] = type(e).__name__
+        else:
+            raise AssertionError(f"two faults: accepted on {where}")
+        seconds[str(where)] = time.perf_counter() - t0
+    if set(raised.values()) != {"PointAtInfinityError"}:
+        raise AssertionError(f"two faults: rejected by {raised}")
+    emit({"phase": "two faults", "curve": "bls12_377", "power": 2, "batch_size": 4,
+          "faults": ["tau_g1[2] outside the subgroup", "tau_g2[2] at infinity"], "raised": raised,
+          "seconds": seconds})
+
+
+def pipeline_line(path: str, runs: list, wall: float, kernel_seconds: float) -> None:
+    """One line per path: each pipeline's depth, the most finishes pending
+    at once, its pushes and the host seconds inside its finishes, beside
+    the step's wall and kernel seconds."""
+    emit({"phase": "pipeline", "path": path, "wall_seconds": wall, "kernel_seconds": kernel_seconds,
+          "device_busy_share": kernel_seconds / wall if wall else None,
+          "pipelines": [{k: r[k] for k in ("name", "depth", "high_water", "pushes", "finish_seconds")}
+                        for r in runs]})
+
+
 def contribution_hashes(spec, data: bytes, count: int) -> list[bytes]:
     """Blake2b of each of the last `count` public keys of an MPC parameter
     file (they end it, after a u32 big-endian count)."""
@@ -1636,7 +1778,7 @@ def phase2_breakdown_targets() -> dict:
         "reads: read_batch (host parse + to Montgomery [+ sqrt, checks])": (BatchPointCodec, "read_batch"),
         "write-back: write_batch_start (normalize + from_mont + flags + copy)": (BatchPointCodec,
                                                                                  "write_batch_start"),
-        "of write-back: normalize (inversion tree + host inversion of its root)": (CurveOps, "normalize"),
+        "of write-back: normalize (inversion tree + the inversion kernel at its root)": (CurveOps, "normalize"),
         "host conversion: write_batch_finish (byte packing)": (BatchPointCodec, "write_batch_finish"),
         "host conversion: from_affine_host": (CurveOps, "from_affine_host"),
         "host conversion: to_affine_host (host Z inversion)": (CurveOps, "to_affine_host"),
@@ -1920,6 +2062,7 @@ def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
     from snark_setup_tpu_torch.phase2.parameters import MPCParameters
     from snark_setup_tpu_torch.serialize.arkworks import g1_codec
     from snark_setup_tpu_torch.transcript.hashing import derive_rng_from_seed
+    from snark_setup_tpu_torch.utils import pipeline
     from snark_setup_tpu_torch.utils.enums import CheckForCorrectness, UseCompression
     from snark_setup_tpu_torch.utils.errors import InvalidRatioError
 
@@ -1936,11 +2079,14 @@ def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
     challenge = read("challenge.0")
     steps = {}
 
-    def step(name, fn, must_launch=()):
+    def step(name, fn, must_launch=(), breakdown=True):
+        """`breakdown`: time the stages, a synchronize around each (which
+        stops the write-back pipeline from overlapping anything)."""
         for w in wrappers.values():
             w.events = []
         stages = {}
-        with stage_timer(stages, phase2_breakdown_targets()):
+        timer = stage_timer(stages, phase2_breakdown_targets()) if breakdown else contextlib.nullcontext()
+        with timer, pipeline.recording() as pipes:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn()
@@ -1954,6 +2100,8 @@ def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
             if label in wrappers and not launches.get(label):
                 raise AssertionError(f"phase2 chunked: {label} was not launched in {name}")
         kernel_s = sum(kernel_ms.values()) / 1e3
+        if not breakdown:
+            pipeline_line(f"phase2 chunked {name}", pipes, secs, kernel_s)
         steps[name] = {"wall_seconds": secs, "kernel_seconds": kernel_s}
         emit({"phase": "phase2 chunked", "step": name, "wall_seconds": secs,
               "kernel_ms": {k: v for k, v in kernel_ms.items() if v}, "launches": launches,
@@ -1965,7 +2113,7 @@ def phase2_chunked_phase(dev, batch: int, bw6_dir: str, wrappers: dict) -> None:
     k2 = ("group_add[bw6_761/g1]", "group_dbl[bw6_761/g1]")
     buf = bytearray(challenge) + bytes(Phase2PublicKey.size(spec))
     h = step("contribute (chunk 0, in place)", lambda: chunked.contribute(
-        spec, buf, derive_rng_from_seed(seed), batch, NO, FULL, device=dev), g1)
+        spec, buf, derive_rng_from_seed(seed), batch, NO, FULL, device=dev), g1, breakdown=False)
     if h != contribution_hashes(spec, read("response_0"), 1)[0]:
         raise AssertionError("phase2 chunked: the hash is not participant 1's from the CLI")
     want = step("object API: read + contribute + write (chunk 0)", lambda: (
@@ -2183,8 +2331,9 @@ def breakdown_phase(dev, batch: int) -> None:
     h = timed("write_batch_start: normalize + from_mont + sign flags + device->host copy (plain torch)",
               lambda: codec.write_batch_start(prod))
     timed("write_batch_finish: host byte packing", lambda: codec.write_batch_finish(h, UseCompression.YES))
-    timed("of write_batch_start: normalize = inversion tree + host inversion of its root", lambda: ops.normalize(prod))
-    timed("of normalize: the root's inversion alone (host), width 1", lambda: ops.fq.inv(prod["z"][:, :1]))
+    timed("of write_batch_start: normalize = inversion tree + the inversion kernel at its root",
+          lambda: ops.normalize(prod))
+    timed("of normalize: the root's inversion alone (inversion kernel), width 1", lambda: ops.fq.inv(prod["z"][:, :1]))
 
     # how many PyTorch operators one width-1 field product dispatches: the
     # unit the inversion's chain of products pays per step
@@ -2264,7 +2413,7 @@ def g2_breakdown_phase(dev, batch: int) -> None:
     loop_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
     loop_launches = K.launches - n0
     K.events = []
-    timed("normalize: inversion tree (K5 products) + host inversion of its root", lambda: ops.normalize(prod))
+    timed("normalize: inversion tree (K5 products) + the inversion kernel at its root", lambda: ops.normalize(prod))
     norm_k5 = sum(s_.elapsed_time(e) for s_, e in K.events) / 1e3
     K.events = None
     h = timed("write_batch_start: normalize + from_mont + sign flags + device->host copy",
@@ -2339,7 +2488,7 @@ def main() -> int:
 
     with torch.no_grad(), tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         rows = (compare_kernels(dev, BATCH) + compare_stacked_mul(dev, BATCH) + compare_sqrt(dev, BATCH)
-                + compare_routes(dev, BATCH) + compare_group_ops(dev, BATCH))
+                + compare_inv(dev) + compare_routes(dev, BATCH) + compare_group_ops(dev, BATCH))
         emit({"phase": "kernel comparisons done", "seconds": time.perf_counter() - t_start})
         # K5 of BW6-761's Fq: no row of its own since the square root left it
         watched = {"stacked_mul[bw6_761]": stacked_mul_for(curve_ops("bw6_761", "g1").fq.modulus)}
@@ -2477,6 +2626,7 @@ def main() -> int:
                   "launches": {r["name"]: r["launches"] for r in rows if r["_path"] == curve} | launched,
                   "watched_launches": {k: w.launches for k, w in watched.items()}})
         ladder_widths_phase(dev, rows)
+        two_fault_phase(dev)
         for r in rows:
             del r["_wrapper"], r["_label"]
             r.pop("_route", None)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..fields.limb import int_to_limbs
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from ..utils.enums import CheckForCorrectness, SubgroupCheckMode, UseCompression
 from ..utils.errors import IncorrectSubgroupError, PointAtInfinityError, SerializationError
 from .cuda_sqrt import fq_sqrt_for
@@ -47,6 +47,47 @@ def ext_pow_const(F, a, e: int):
         if bit == "1":
             acc = F.mul(acc, a)
     return acc
+
+
+class PinnedPool:
+    """Page-locked host buffers for the write-back's device-to-host copies,
+    reused by shape and type: at most `keep` free buffers of each."""
+
+    def __init__(self, keep: int = 8):
+        self.keep = keep
+        self._free: dict = {}
+
+    def take(self, like: torch.Tensor) -> torch.Tensor:
+        free = self._free.get((like.shape, like.dtype))
+        if free:
+            return free.pop()
+        return torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+
+    def give(self, bufs) -> None:
+        for b in bufs:
+            free = self._free.setdefault((b.shape, b.dtype), [])
+            if len(free) < self.keep:
+                free.append(b)
+
+
+class WriteHandle:
+    """A write-back's four outputs (x, y, infinity and sign flags) on their
+    way to the host: host tensors that `event` marks as landed, or the
+    outputs themselves on the CPU (no event, no pool)."""
+
+    def __init__(self, parts, event=None, pool: PinnedPool | None = None):
+        self.parts, self.event, self.pool = parts, event, pool
+
+    def wait(self) -> tuple:
+        """The four outputs as numpy arrays, once their copies landed."""
+        if self.event is not None:
+            self.event.synchronize()
+        return tuple(t.numpy() for t in self.parts)
+
+    def release(self) -> None:
+        if self.pool is not None:
+            self.pool.give(self.parts)
+            self.pool = None
 
 
 class ExtSqrt:
@@ -130,6 +171,7 @@ class BatchPointCodec:
         self._q_limbs = int_to_limbs(self.spec.q, self.fp.L)
         self._r_limbs = int_to_limbs(self.spec.r, ops.fr.L)
         self._write_selfchecked = False
+        self._pinned = PinnedPool()
 
     def size(self, compression: UseCompression) -> int:
         return (
@@ -240,13 +282,13 @@ class BatchPointCodec:
         dev = p["x"].device
         if ops._endo_check is not None:
             lam_limbs, lam_bits, lam_neg = ops._endo_check
-            scalars = torch.from_numpy(lam_limbs.astype(np.int32)).to(dev).expand(lam_limbs.shape[0], B)
+            scalars = to_device(lam_limbs.astype(np.int32), dev).expand(lam_limbs.shape[0], B)
             lp = ops.scalar_mul_windowed(p, scalars, nbits=lam_bits)
             if lam_neg:
                 lp = ops.neg(lp)
             proper = ~(F.is_zero(lp["y"]) & F.is_zero(lp["z"]))  # not (0 : 0 : 0)
             return ops.eq_projective(lp, ops.endo(p)) & proper
-        r = torch.from_numpy(self._r_limbs.astype(np.int32)).to(dev)
+        r = to_device(self._r_limbs.astype(np.int32), dev)
         prod = ops.scalar_mul_windowed(p, r[:, None].expand(r.shape[0], B))
         return ops.is_infinity(prod) & ~F.is_zero(prod["y"])
 
@@ -297,16 +339,16 @@ class BatchPointCodec:
             raise SerializationError("invalid flags (both set)")
 
         dev = self.device
-        inf_d = torch.from_numpy(inf).to(dev)
-        x = self.fp.to_mont_raw(torch.from_numpy(x_raw).to(dev))
+        inf_d = to_device(inf, dev)
+        x = self.fp.to_mont_raw(to_device(x_raw, dev))
         if y_raw is None:
             y, ok = self.sqrter.sqrt(self.rhs(x))
             if not bool((ok | inf_d).all()):
                 raise SerializationError("x not on curve (no sqrt)")
-            flip = self.y_is_negative(y) != torch.from_numpy(neg).to(dev)
+            flip = self.y_is_negative(y) != to_device(neg, dev)
             y = self.F.select(flip, self.F.neg(y), y)
         else:
-            y = self.fp.to_mont_raw(torch.from_numpy(y_raw).to(dev))
+            y = self.fp.to_mont_raw(to_device(y_raw, dev))
         F = self.F
         one, zero = F.ones((1,), dev), F.zeros((1,), dev)
         p = PointVec(
@@ -352,20 +394,33 @@ class BatchPointCodec:
         neg = self.y_is_negative(y)
         return self.fp.from_mont(x), self.fp.from_mont(y), inf, neg
 
-    def write_batch_start(self, p: PointVec, normalized: bool = False):
+    def write_batch_start(self, p: PointVec, normalized: bool = False) -> "WriteHandle":
         """Device half of write_batch: normalize, de-Montgomery, sign and
-        infinity flags, then a plain synchronous copy of the four outputs to
-        the host. Returns them as numpy arrays for write_batch_finish."""
-        return tuple(t.cpu().numpy() for t in self._write_device(p, normalized))
+        infinity flags. On the card the four outputs are copied into
+        page-locked host buffers of the codec's pool on the current stream,
+        behind an event, and nothing waits for the card; on the CPU the
+        handle holds them as they are. Returns the handle for
+        write_batch_finish."""
+        parts = self._write_device(p, normalized)
+        if parts[0].device.type != "cuda":
+            return WriteHandle(parts)
+        bufs = tuple(self._pinned.take(t) for t in parts)
+        for dst, src in zip(bufs, parts):
+            dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(parts[0].device))
+        return WriteHandle(bufs, event, self._pinned)
 
     def write_batch_finish(
         self,
-        handle,
+        handle: "WriteHandle",
         compression: UseCompression,
         n_valid: int | None = None,
     ) -> bytes:
-        """Host half of write_batch: pack wire bytes."""
-        out = self._finish_one(handle, compression, n_valid)
+        """Host half of write_batch: wait for the handle's copies, pack wire
+        bytes, give the buffers back to the pool."""
+        out = self._finish_one(handle.wait(), compression, n_valid)
+        handle.release()
         if not self._write_selfchecked and out:
             self._selfcheck_write(out, compression)
         return out

@@ -1,6 +1,8 @@
 // The decompression square root over Fq, the whole chain in one launch, one
 // TEAM of threads of one warp per lane on the cooperative Montgomery layer
-// (field_team.cuh).
+// (field_team.cuh). A second entry point, fq_pow_launch, runs the same power
+// chain alone for an exponent passed by value: with p - 2 it is the
+// inversion at the root of every batch inversion (see the end of the file).
 //
 // Replaces the Fq products of the square root's chains, which ran as one
 // launch of the stacked-product kernel each (snark_setup_tpu/ops/
@@ -62,6 +64,45 @@ __device__ __forceinline__ void tmul(const Team& tm, tfe& r, const tfe& a, const
     tset(r, out[0]);
 }
 
+// r = a^exp for a public exponent of nbits >= 1 bits, most significant bit
+// first: a squaring per bit and a product by `a` per set bit
+// (ops/codec.py: ext_pow_const). `exp` points into the launch's by-value
+// parameter, so every thread reads the same bits.
+__device__ __forceinline__ void tpow(const Team& tm, tfe& r, const tfe& a, const uint32_t* exp, int nbits) {
+    tset(r, a);
+#pragma unroll 1
+    for (int k = nbits - 2; k >= 0; --k) {
+        tmul(tm, r, r, r);
+        if ((exp[k >> 5] >> (k & 31)) & 1u) tmul(tm, r, r, a);
+    }
+}
+
+// lane b's element from (L, B) 16-bit planes into the team's registers (0
+// where the lane is past B)
+__device__ __forceinline__ void load_lane(const Team& tm, tfe& a, const uint32_t* in, long long B, long long b,
+                                          bool live) {
+#pragma unroll
+    for (int m = 0; m < TK; ++m) {
+        const int j = tm.t * TK + m;
+        uint32_t w = 0;
+        if (live) {
+            const uint32_t lo = in[(long long)(2 * j) * B + b];
+            const uint32_t hi = in[(long long)(2 * j + 1) * B + b];
+            w = (lo & 0xFFFFu) | (hi << 16);
+        }
+        a[m] = w;
+    }
+}
+
+__device__ __forceinline__ void store_lane(const Team& tm, uint32_t* out, long long B, long long b, const tfe& r) {
+#pragma unroll
+    for (int m = 0; m < TK; ++m) {
+        const int j = tm.t * TK + m;
+        out[(long long)(2 * j) * B + b] = r[m] & 0xFFFFu;
+        out[(long long)(2 * j + 1) * B + b] = r[m] >> 16;
+    }
+}
+
 // a == b over the team (the same answer on every thread of it)
 __device__ __forceinline__ bool team_eq(const Team& tm, const tfe& a, const tfe& b) {
     uint32_t d = 0;
@@ -75,27 +116,14 @@ __global__ void __launch_bounds__(SQRT_BLOCK) fq_sqrt_kernel(const __grid_consta
     const long long b = (long long)blockIdx.x * SPB + threadIdx.x / TEAM;
     const bool live = b < p.B;  // lanes past B compute on 0 and store nothing
     tfe a, one, zero;
+    load_lane(tm, a, p.in, p.B, b, live);
 #pragma unroll
     for (int m = 0; m < TK; ++m) {
-        const int j = tm.t * TK + m;
-        uint32_t w = 0;
-        if (live) {
-            const uint32_t lo = p.in[(long long)(2 * j) * p.B + b];
-            const uint32_t hi = p.in[(long long)(2 * j + 1) * p.B + b];
-            w = (lo & 0xFFFFu) | (hi << 16);
-        }
-        a[m] = w;
-        one[m] = p.fc.one[j];
+        one[m] = p.fc.one[tm.t * TK + m];
         zero[m] = 0;
     }
-    // acc = a^exp
     tfe acc;
-    tset(acc, a);
-#pragma unroll 1
-    for (int k = p.nbits - 2; k >= 0; --k) {
-        tmul(tm, acc, acc, acc);
-        if ((p.exp[k >> 5] >> (k & 31)) & 1u) tmul(tm, acc, acc, a);
-    }
+    tpow(tm, acc, a, p.exp, p.nbits);
     tfe r;
     if (p.e == 1) {
         tset(r, acc);
@@ -134,12 +162,7 @@ __global__ void __launch_bounds__(SQRT_BLOCK) fq_sqrt_kernel(const __grid_consta
     const bool is_zero = team_eq(tm, a, zero);
     const bool ok = squares | is_zero;
     if (!live) return;  // after the last collective
-#pragma unroll
-    for (int m = 0; m < TK; ++m) {
-        const int j = tm.t * TK + m;
-        p.root[(long long)(2 * j) * p.B + b] = r[m] & 0xFFFFu;
-        p.root[(long long)(2 * j + 1) * p.B + b] = r[m] >> 16;
-    }
+    store_lane(tm, p.root, p.B, b, r);
     if (tm.t == 0) p.ok[b] = ok ? 1u : 0u;
 }
 
@@ -170,3 +193,55 @@ extern "C" int fq_sqrt_launch(const void* in, void* root, void* ok, long long B,
 extern "C" int fq_sqrt_nl(void) { return NL; }
 
 extern "C" int fq_sqrt_team(void) { return TEAM; }
+
+// ---------------------------------------------------------------------------
+// a^exp for a public exponent, Montgomery form in and out, one team a lane.
+//
+// With exp = p - 2 this is the Fermat inversion a^-1 (and 0 for 0) that
+// ops/fp.py: FpOps.inv launches for the root of the product tree of every
+// batch inversion (projective normalization before each write-back, the
+// norm of an Fp2 / Fp3 inversion). It replaces the JAX package's Fermat
+// chain of single products there (snark_setup_tpu/ops/pallas_field.py:498
+// PallasFieldMul.__call__ at S = G = 1); ops/cuda_sqrt.py: fq_pow_plain
+// repeats it in plain PyTorch. The callers pass one to a few lanes, so a
+// launch is one block whose first team or teams are live: its time is the
+// chain's ~1.5 nbits dependent products, latency and not throughput. The
+// rest of the block runs the same chain on 0 and stores nothing, so every
+// shuffle of the chain meets all 32 threads of the warp.
+struct PowParams {
+    const uint32_t* in;  // (L, B) 16-bit limb planes, Montgomery form, canonical
+    uint32_t* out;       // (L, B) planes of a^exp
+    long long B;
+    int nbits;           // bit length of the exponent (>= 1)
+    uint32_t exp[NL];
+    TeamConsts fc;       // N, R mod N, n0
+};
+
+__global__ void __launch_bounds__(SQRT_BLOCK) fq_pow_kernel(const __grid_constant__ PowParams p) {
+    const Team tm = team_init(p.fc);
+    const long long b = (long long)blockIdx.x * SPB + threadIdx.x / TEAM;
+    const bool live = b < p.B;
+    tfe a, r;
+    load_lane(tm, a, p.in, p.B, b, live);
+    tpow(tm, r, a, p.exp, p.nbits);
+    if (!live) return;  // after the last collective
+    store_lane(tm, p.out, p.B, b, r);
+}
+
+// `in`, `out`: contiguous (L, B) int32 planes on the card; `params`: a HOST
+// pointer to the words ops/cuda_sqrt.py: pow_params packs: nbits, the
+// exponent (NL words), then TeamConsts. Returns cudaGetLastError().
+extern "C" int fq_pow_launch(const void* in, void* out, long long B, const void* params, void* stream) {
+    PowParams p;
+    memset(&p, 0, sizeof p);
+    const uint32_t* w = (const uint32_t*)params;
+    p.in = (const uint32_t*)in;
+    p.out = (uint32_t*)out;
+    p.B = B;
+    p.nbits = (int)w[0];
+    memcpy(p.exp, w + 1, sizeof p.exp);
+    memcpy(&p.fc, w + 1 + NL, sizeof(TeamConsts));
+    const unsigned blocks = (unsigned)((B + SPB - 1) / SPB);
+    fq_pow_kernel<<<blocks, SQRT_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    return (int)cudaGetLastError();
+}

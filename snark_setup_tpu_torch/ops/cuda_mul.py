@@ -26,6 +26,7 @@ import hashlib
 import numpy as np
 import torch
 
+from ..utils.device import to_device
 from .fp import FpOps, fp_ops
 
 
@@ -162,11 +163,19 @@ class StackedMul:
         is the identity."""
         urow, vrow, uneg = rows
         # identity maps (every degree-1 round) need no copy
-        Ub = U if urow == tuple(range(U.shape[1])) else U[:, list(urow)]
+        Ub = U if urow == tuple(range(U.shape[1])) else U.index_select(1, self._host_const(urow, U.device))
         if any(uneg):
-            neg = torch.tensor(uneg, dtype=torch.bool, device=U.device)[:, None]
+            neg = self._host_const(uneg, U.device, np.bool_)[:, None]
             Ub = torch.where(neg, self.fq.neg(Ub), Ub)
-        return Ub, V if vrow == tuple(range(V.shape[1])) else V[:, list(vrow)]
+        return Ub, V if vrow == tuple(range(V.shape[1])) else V.index_select(1, self._host_const(vrow, V.device))
+
+    def _host_const(self, values: tuple, dev, dtype=np.int64) -> torch.Tensor:
+        """A row map's indices or signs on `dev`, copied there once."""
+        key = (values, dtype, dev)
+        t = self._tables.get(key)
+        if t is None:
+            t = self._tables[key] = to_device(np.array(values, dtype), dev)
+        return t
 
     def _launch_fn(self):
         if self._fn is None:

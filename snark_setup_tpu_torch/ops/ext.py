@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.device import to_device
 from .cuda_routes import stacked_product_for
 from .fp import FpOps
 
@@ -160,7 +161,7 @@ class _ExtCommon:
         ck = (key, like.device, torch.int32)
         t = cache.get(ck)
         if t is None:
-            t = cache[ck] = torch.from_numpy(np.asarray(arr).astype(np.int64)).to(like.device, torch.int32)
+            t = cache[ck] = to_device(np.asarray(arr).astype(np.int64), like.device).to(torch.int32)
         return self.bc(t, like)
 
     def stack(self, elems):

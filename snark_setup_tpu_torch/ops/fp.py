@@ -39,6 +39,7 @@ from ..fields.limb import (
     ints_to_limbs_batch,
     limbs_batch_to_ints,
 )
+from ..utils.device import to_device
 
 MASK = LIMB_MASK
 SHIFT = LIMB_BITS
@@ -173,13 +174,13 @@ class FpOps:
         ck = (key, like.device, dtype)
         t = self._dev_consts.get(ck)
         if t is None:
-            t = torch.from_numpy(np.asarray(arr).astype(np.int64)).to(device=like.device, dtype=dtype)
+            t = to_device(np.asarray(arr).astype(np.int64), like.device).to(dtype)
             self._dev_consts[ck] = t
         return t.reshape(self.L, *([1] * (like.ndim - 1)))
 
     def tensor(self, limbs: np.ndarray, device) -> torch.Tensor:
         """Host limb array (any integer dtype, values < 2^16) -> int32 tensor."""
-        return torch.from_numpy(np.ascontiguousarray(limbs).astype(np.int32)).to(device)
+        return to_device(np.ascontiguousarray(limbs).astype(np.int32), device)
 
     def zeros(self, shape, device) -> torch.Tensor:
         return torch.zeros((self.L, *shape), dtype=torch.int32, device=device)
@@ -374,11 +375,16 @@ class FpOps:
 
     # -- inversion ---------------------------------------------------------
     def inv(self, a: torch.Tensor) -> torch.Tensor:
-        """Inversion; a==0 maps to 0. The elements are inverted on the
-        host, Montgomery in and out ((aR)^-1 R^2 = a^-1 R): callers invert
-        one element or a few (the root of a batch inversion, an extension
-        field's norm), and a^(p-2) on the device is ~1100 dependent products
-        of this layer, over a second a call at 761 bits."""
+        """Inversion, Montgomery form in and out; a==0 maps to 0. Callers
+        invert one element or a few (the root of a batch inversion, an
+        extension field's norm). On a CUDA tensor: one launch of the power
+        kernel, a^(p-2) (ops/cuda_sqrt.py: fq_inv_for), with no wait for
+        the card. On the CPU: the exact host inversion, (aR)^-1 R^2 = a^-1 R,
+        equal to the kernel's plain chain (tests/test_torch_pipeline.py)."""
+        if a.device.type == "cuda":
+            from .cuda_sqrt import fq_inv_for
+
+            return fq_inv_for(self.modulus)(a)
         m, r2 = self.modulus, self.spec.mont_r2
         vals = limbs_batch_to_ints(a.reshape(self.L, -1).cpu().numpy().T)
         inv = [pow(v, -1, m) * r2 % m if v % m else 0 for v in vals]

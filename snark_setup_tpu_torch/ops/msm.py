@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..fields.limb import LIMB_BITS, ints_to_limbs_batch
+from ..utils.device import to_device
 from .curve import CurveOps, PointVec
 from .lanes import lanewise
 
@@ -66,7 +67,7 @@ def msm_public(ops: CurveOps, pts: PointVec, scalars_raw: np.ndarray, nbits: int
 
         return pippenger_for(ops.spec.name, ops.group_name, B, nbits)(pts, scalars_raw)
     dev = pts["x"].device
-    scalars = torch.from_numpy(np.asarray(scalars_raw).astype(np.int32)).to(dev)
+    scalars = to_device(np.asarray(scalars_raw).astype(np.int32), dev)
     return ops.sum_reduce(ops.scalar_mul_windowed(pts, scalars, nbits=nbits))
 
 

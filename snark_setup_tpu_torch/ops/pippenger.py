@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..fields.limb import LIMB_BITS
+from ..utils.device import to_device
 from .curve import CurveOps, PointVec
 
 _DEF_C = 8
@@ -111,8 +112,8 @@ class PippengerMSM:
             inf = ops.infinity((pad,), dev)
             pts = PointVec({k: torch.cat([pts[k], inf[k]], dim=-1) for k in "xyz"})
         p = {k: v.reshape(*v.shape[:el], S, G) for k, v in pts.items()}
-        idx_t = torch.from_numpy(idx.reshape(nwin, S, G).transpose(1, 0, 2).copy()).to(dev, torch.int64)
-        neg_t = torch.from_numpy(neg.reshape(nwin, S, G).transpose(1, 0, 2).copy()).to(dev)
+        idx_t = to_device(np.ascontiguousarray(idx.reshape(nwin, S, G).transpose(1, 0, 2), np.int64), dev)
+        neg_t = to_device(np.ascontiguousarray(neg.reshape(nwin, S, G).transpose(1, 0, 2)), dev)
 
         buckets = ops.infinity((nwin, nb, G), dev)
         axis = el + 1  # the bucket-row axis of (L[, d], nwin, nb, G)

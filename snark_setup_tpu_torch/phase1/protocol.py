@@ -33,7 +33,7 @@ from ..ops.msm import RLC_BITS, msm_public, rlc_scalars_padded
 from ..serialize.arkworks import g1_codec, g2_codec
 from ..shard import runtime
 from ..transcript.hashing import blank_hash, compute_g2_s
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, to_device
 from ..utils.enums import (
     BatchExpMode,
     CheckForCorrectness,
@@ -49,12 +49,26 @@ from ..utils.errors import (
     IncorrectSubgroupError,
     InvalidGeneratorError,
 )
+from ..utils.pipeline import Pipeline
 from ..utils.tracing import get_logger, info_span
 from .buffers import Section, iter_chunk, split, split_at_chunk
 from .keys import PrivateKey, PublicKey, key_generation
 from .parameters import Phase1Parameters
 
 logger = get_logger("snark_setup_tpu_torch.phase1")
+
+PIPELINE_DEPTH = 4
+"""Batches of `computation` whose write-back may be pending (the reference's
+PIPELINE_DEPTH): their scalar-muls and write conversions are queued on the
+card, and the byte packing of the oldest runs once a fourth is queued."""
+
+VERIFY_PIPELINE_DEPTH = 3
+"""Sections of `verification` (and of `aggregate_verification`) whose
+checks may be pending (the reference's VERIFY_PIPELINE_DEPTH and
+`vflush(limit=2)`): the subgroup flags, the ratio checks' MSMs and the new
+challenge's write conversion are queued, and section i's host half (the
+flag read-back, the pairings, the byte packing) runs after the reads of
+sections i + 1 and i + 2."""
 
 RECODE_BATCH = 1 << 16
 """Points per device batch of combine / split / decompress and of the test
@@ -174,7 +188,7 @@ class Phase1:
         `input_buf` and write the new accumulator into `output`. Runs on the
         card unless `device="cpu"` is passed."""
         dev = resolve_device(device)
-        with info_span("phase1-computation", logger):
+        with info_span("phase1-computation", logger), Pipeline(PIPELINE_DEPTH, "computation") as pipe:
             spec = parameters.spec
             sec_in = split(parameters, compressed_input)
             sec_out = split(parameters, compressed_output)
@@ -192,12 +206,10 @@ class Phase1:
                 exp_range: tuple[int, int] | None,
                 coeff: int | None,
             ):
-                """Read [sc,ec) of section, raise to powers, write the
-                result back (a synchronous copy per batch; overlapping it with
-                the next batch's work is left until the copy shows in the wall
-                time). Powers come either from explicit host ints
-                (exp_ints) or a device-generated tau^i range
-                (exp_range=(start,end))."""
+                """Read [sc,ec) of section, raise to powers, queue the
+                write-back (its byte packing runs in the pipeline). Powers
+                come either from explicit host ints (exp_ints) or a
+                device-generated tau^i range (exp_range=(start,end))."""
                 n = ec - sc
                 pts = codec.read_batch(
                     bytes(section_in.slice_of(input_buf, sc, ec)),
@@ -213,9 +225,14 @@ class Phase1:
                     s, _e = exp_range
                     raw = _tau_powers_raw(fr, key.tau, s, s + n, coeff, dev)
                 prod = runtime.scalar_mul(codec.ops, pts, raw, dev)
-                section_out.slice_of(output, sc, ec)[:] = codec.write_batch(
-                    prod, compressed_output, n_valid=n
-                )
+                handle = codec.write_batch_start(prod)
+
+                def finish():
+                    section_out.slice_of(output, sc, ec)[:] = codec.write_batch_finish(
+                        handle, compressed_output, n_valid=n
+                    )
+
+                pipe.push(finish)
 
             if parameters.proving_system is ProvingSystem.GROTH16:
                 # beta_g2 single element
@@ -310,11 +327,12 @@ class Phase1:
         `rlc_rng` (a `random.Random`) makes the ratio checks' scalars
         reproducible.
 
-        The batches run one after another: the reference's bounded
-        dispatch/finish pipeline overlapped host round trips of its backend,
-        and here the host dispatches the device work itself, so a batch's
-        failure surfaces at that batch. Same checks, same exceptions, same
-        new challenge."""
+        The sections run through a bounded pipeline of depth
+        VERIFY_PIPELINE_DEPTH, as the reference's do: a section's read
+        raises at once (a point at infinity, off the curve, malformed), its
+        subgroup and ratio checks and its write into the new challenge run
+        after the next two sections' reads. Same checks, same exceptions in
+        the same order, same new challenge."""
         dev = resolve_device(device)
         with info_span("phase1-verification", logger):
             spec = parameters.spec
@@ -416,6 +434,7 @@ class Phase1:
 
             dc1 = batch_codec(spec.name, "g1", dev)
             dc2 = batch_codec(spec.name, "g2", dev)
+            pipe = Pipeline(VERIFY_PIPELINE_DEPTH, "verification")
 
             def process_section(codec: BatchPointCodec, sec_name: str, sc: int, ec: int, do_ratio: bool,
                                 check_pair_g2=None, check_pair_g1=None):
@@ -430,37 +449,47 @@ class Phase1:
                     pad_to=pad,
                 )
                 pts = runtime.put_points(codec.ops, pts, dev)
-                _subgroup_finish(_subgroup_start(codec, pts, subgroup_check_mode, n))
+                sg = _subgroup_start(codec, pts, subgroup_check_mode, n)
+                pp = None
                 if do_ratio:
                     scalars = rlc_scalars_padded(n - 1, pad - 1, rng=rlc_rng)
-                    s_pt, sx_pt = _power_pairs_device(codec.ops, pts, scalars)
-                    if check_pair_g2 is not None:
-                        eng.check_same_ratio((s_pt, sx_pt), check_pair_g2, f"Power pairs {sec_name}")
-                    else:
-                        eng.check_same_ratio(check_pair_g1, (s_pt, sx_pt), f"Power pairs {sec_name}")
-                sec_new[sec_name].slice_of(new_challenge, sc, ec)[:] = codec.write_batch(
-                    runtime.gather(pts), compressed_new_challenge, normalized=True, n_valid=n
-                )
+                    pp = _power_pairs_start(codec.ops, pts, scalars)
+                handle = codec.write_batch_start(runtime.gather(pts), normalized=True)
 
-            for start, end in iter_chunk(parameters):
-                sc, ec = _chunk_rel(parameters, start, end)
-                if ratio_check and end <= start + 1:
-                    raise BatchTooSmallError()
-                if parameters.proving_system is ProvingSystem.GROTH16:
-                    process_section(dc1, "tau_g1", sc, ec, ratio_check, check_pair_g2=g2_check)
-                    if start < parameters.powers_length:
-                        end2 = _end_in_powers(parameters, start, end)
-                        sc2, ec2 = _chunk_rel(parameters, start, end2)
-                        if end2 > start + 1:
-                            process_section(dc2, "tau_g2", sc2, ec2, ratio_check, check_pair_g1=g1_check)
-                            process_section(dc1, "alpha_g1", sc2, ec2, ratio_check, check_pair_g2=g2_check)
-                            process_section(dc1, "beta_g1", sc2, ec2, ratio_check, check_pair_g2=g2_check)
-                else:  # Marlin
-                    process_section(dc1, "tau_g1", sc, ec, False)
-                    if start == 0:
-                        n = parameters.total_size_in_log2
-                        process_section(dc1, "alpha_g1", 0, 3 + 3 * n, False)
-                        process_section(dc2, "tau_g2", 0, n + 2, False)
+                def finish():
+                    _subgroup_finish(sg)
+                    if pp is not None:
+                        s_pt, sx_pt = _power_pairs_finish(codec.ops, pp)
+                        if check_pair_g2 is not None:
+                            eng.check_same_ratio((s_pt, sx_pt), check_pair_g2, f"Power pairs {sec_name}")
+                        else:
+                            eng.check_same_ratio(check_pair_g1, (s_pt, sx_pt), f"Power pairs {sec_name}")
+                    sec_new[sec_name].slice_of(new_challenge, sc, ec)[:] = codec.write_batch_finish(
+                        handle, compressed_new_challenge, n_valid=n
+                    )
+
+                pipe.push(finish)
+
+            with pipe:
+                for start, end in iter_chunk(parameters):
+                    sc, ec = _chunk_rel(parameters, start, end)
+                    if ratio_check and end <= start + 1:
+                        raise BatchTooSmallError()
+                    if parameters.proving_system is ProvingSystem.GROTH16:
+                        process_section(dc1, "tau_g1", sc, ec, ratio_check, check_pair_g2=g2_check)
+                        if start < parameters.powers_length:
+                            end2 = _end_in_powers(parameters, start, end)
+                            sc2, ec2 = _chunk_rel(parameters, start, end2)
+                            if end2 > start + 1:
+                                process_section(dc2, "tau_g2", sc2, ec2, ratio_check, check_pair_g1=g1_check)
+                                process_section(dc1, "alpha_g1", sc2, ec2, ratio_check, check_pair_g2=g2_check)
+                                process_section(dc1, "beta_g1", sc2, ec2, ratio_check, check_pair_g2=g2_check)
+                    else:  # Marlin
+                        process_section(dc1, "tau_g1", sc, ec, False)
+                        if start == 0:
+                            n = parameters.total_size_in_log2
+                            process_section(dc1, "alpha_g1", 0, 3 + 3 * n, False)
+                            process_section(dc2, "tau_g2", 0, n + 2, False)
 
     # ------------------------------------------------------------------
     # Aggregate verification (verification.rs:505-769)
@@ -476,7 +505,9 @@ class Phase1:
         device=None,
     ) -> None:
         """RLC ratio checks over a whole (combined) accumulator, batch by
-        batch, on the card unless `device="cpu"`."""
+        batch, on the card unless `device="cpu"`. The MSMs of a section are
+        queued and its pairings run after the next two sections' reads
+        (the pipeline of `verification`)."""
         dev = resolve_device(device)
         with info_span("phase1-aggregate-verification", logger):
             spec = parameters.spec
@@ -492,6 +523,7 @@ class Phase1:
             g1_check = (read_el(hc1, sec["tau_g1"], 0), read_el(hc1, sec["tau_g1"], 1))
             g2_check = (read_el(hc2, sec["tau_g2"], 0), read_el(hc2, sec["tau_g2"], 1))
             alpha_check = (read_el(hc1, sec["alpha_g1"], 0), read_el(hc1, sec["alpha_g1"], 1))
+            pipe = Pipeline(VERIFY_PIPELINE_DEPTH, "aggregate_verification")
 
             def ratio_section(codec, sec_name, s, e, check_pair_g2=None, check_pair_g1=None):
                 n = e - s
@@ -505,47 +537,53 @@ class Phase1:
                 )
                 pts = runtime.put_points(codec.ops, pts, dev)
                 scalars = rlc_scalars_padded(n - 1, pad - 1, rng=rlc_rng)
-                s_pt, sx_pt = _power_pairs_device(codec.ops, pts, scalars)
-                if check_pair_g2 is not None:
-                    eng.check_same_ratio((s_pt, sx_pt), check_pair_g2, f"Power pairs {sec_name}")
-                else:
-                    eng.check_same_ratio(check_pair_g1, (s_pt, sx_pt), f"Power pairs {sec_name}")
+                pp = _power_pairs_start(codec.ops, pts, scalars)
 
-            if parameters.proving_system is ProvingSystem.GROTH16:
-                for start, end in iter_chunk(parameters):
-                    ratio_section(dc1, "tau_g1", start, end, check_pair_g2=g2_check)
-                    if start < parameters.powers_length:
-                        end2 = (
-                            parameters.powers_length
-                            if start + parameters.batch_size > parameters.powers_length
-                            else end
-                        )
-                        if end2 > start + 1:
-                            ratio_section(dc2, "tau_g2", start, end2, check_pair_g1=g1_check)
-                            ratio_section(dc1, "alpha_g1", start, end2, check_pair_g2=g2_check)
-                            ratio_section(dc1, "beta_g1", start, end2, check_pair_g2=g2_check)
-            else:  # Marlin
-                n = parameters.total_size_in_log2
-                for start, end in iter_chunk(parameters):
-                    ratio_section(dc1, "tau_g1", start, end, check_pair_g2=g2_check)
-                    powers_in_range = [(i, parameters.powers_length - 1 - (1 << i) + 2) for i in range(n)]
-                    for i, p in [(i, p) for i, p in powers_in_range if start <= p < end]:
-                        g1_el = read_el(hc1, sec["tau_g1"], p)
-                        g2_el = read_el(hc2, sec["tau_g2"], 2 + i)
-                        eng.check_same_ratio(
-                            (g1_el, g1_curve(spec).generator), (g2_curve(spec).generator, g2_el), "G1<>G2"
-                        )
-                        a0 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i)
-                        a1 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i + 1)
-                        a2 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i + 2)
-                        eng.check_same_ratio((a0, a1), g2_check, "alpha_g1 ratio 1")
-                        eng.check_same_ratio((a1, a2), g2_check, "alpha_g1 ratio 2")
-                        eng.check_same_ratio(
-                            (a0, alpha_check[0]), (g2_curve(spec).generator, g2_el), "alpha consistent"
-                        )
-                    if start == 0:
-                        ratio_section(dc1, "alpha_g1", 0, 3, check_pair_g2=g2_check)
-                        ratio_section(dc2, "tau_g2", 0, 2, check_pair_g1=g1_check)
+                def finish():
+                    s_pt, sx_pt = _power_pairs_finish(codec.ops, pp)
+                    if check_pair_g2 is not None:
+                        eng.check_same_ratio((s_pt, sx_pt), check_pair_g2, f"Power pairs {sec_name}")
+                    else:
+                        eng.check_same_ratio(check_pair_g1, (s_pt, sx_pt), f"Power pairs {sec_name}")
+
+                pipe.push(finish)
+
+            with pipe:
+                if parameters.proving_system is ProvingSystem.GROTH16:
+                    for start, end in iter_chunk(parameters):
+                        ratio_section(dc1, "tau_g1", start, end, check_pair_g2=g2_check)
+                        if start < parameters.powers_length:
+                            end2 = (
+                                parameters.powers_length
+                                if start + parameters.batch_size > parameters.powers_length
+                                else end
+                            )
+                            if end2 > start + 1:
+                                ratio_section(dc2, "tau_g2", start, end2, check_pair_g1=g1_check)
+                                ratio_section(dc1, "alpha_g1", start, end2, check_pair_g2=g2_check)
+                                ratio_section(dc1, "beta_g1", start, end2, check_pair_g2=g2_check)
+                else:  # Marlin
+                    n = parameters.total_size_in_log2
+                    for start, end in iter_chunk(parameters):
+                        ratio_section(dc1, "tau_g1", start, end, check_pair_g2=g2_check)
+                        powers_in_range = [(i, parameters.powers_length - 1 - (1 << i) + 2) for i in range(n)]
+                        for i, p in [(i, p) for i, p in powers_in_range if start <= p < end]:
+                            g1_el = read_el(hc1, sec["tau_g1"], p)
+                            g2_el = read_el(hc2, sec["tau_g2"], 2 + i)
+                            eng.check_same_ratio(
+                                (g1_el, g1_curve(spec).generator), (g2_curve(spec).generator, g2_el), "G1<>G2"
+                            )
+                            a0 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i)
+                            a1 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i + 1)
+                            a2 = read_el(hc1, sec["alpha_g1"], 3 + 3 * i + 2)
+                            eng.check_same_ratio((a0, a1), g2_check, "alpha_g1 ratio 1")
+                            eng.check_same_ratio((a1, a2), g2_check, "alpha_g1 ratio 2")
+                            eng.check_same_ratio(
+                                (a0, alpha_check[0]), (g2_curve(spec).generator, g2_el), "alpha consistent"
+                            )
+                        if start == 0:
+                            ratio_section(dc1, "alpha_g1", 0, 3, check_pair_g2=g2_check)
+                            ratio_section(dc2, "tau_g2", 0, 2, check_pair_g1=g1_check)
 
     # ------------------------------------------------------------------
     # Aggregation / combine (aggregation.rs:11-180)
@@ -674,11 +712,12 @@ class Phase1:
         B = min(parameters.batch_size, RECODE_BATCH)
 
         def write_vec(codec, s: Section, pts):
-            for off in range(0, len(pts), B):
-                chunk = pts[off : off + B]
-                s.slice_of(output, off, off + len(chunk))[:] = codec.write_batch(
-                    codec.ops.from_affine_host(chunk, dev), compression, normalized=True
-                )
+            # synchronous, as the reference's: the pipeline at depth 1
+            with Pipeline(1, "serialize_accumulator") as pipe:
+                for off in range(0, len(pts), B):
+                    chunk = pts[off : off + B]
+                    _write_back(pipe, codec, codec.ops.from_affine_host(chunk, dev), compression,
+                                s.slice_of(output, off, off + len(chunk)))
 
         write_vec(dc1, sec["tau_g1"], acc.tau_powers_g1)
         write_vec(dc2, sec["tau_g2"], acc.tau_powers_g2)
@@ -764,7 +803,7 @@ def _batched_subgroup_sums(ops: CurveOps, pts: PointVec, bits_host: np.ndarray) 
     projective sums, in log2(B) batched additions instead of ROUNDS x
     log2(B) narrow ones."""
     dev = pts["x"].device
-    bits = torch.from_numpy(np.ascontiguousarray(bits_host, bool)).to(dev)
+    bits = to_device(np.ascontiguousarray(bits_host, bool), dev)
     inf = ops.infinity((1, 1), dev)
     F = ops.field
     masked = PointVec({k: F.select(bits, pts[k].unsqueeze(-2), inf[k]) for k in "xyz"})
@@ -853,7 +892,21 @@ def _recode_section(
     codec = batch_codec(parameters.spec.name, group, device)
     n = s_in.num_elements
     B = min(n, RECODE_BATCH)
-    for off in range(0, n, B):
-        hi = min(off + B, n)
-        pts = codec.read_batch(bytes(s_in.slice_of(input_buf, off, hi)), comp_in, check)
-        s_out.slice_of(output, off, hi)[:] = codec.write_batch(pts, comp_out, normalized=True)
+    # synchronous, as the reference's: the pipeline at depth 1
+    with Pipeline(1, "recode_section") as pipe:
+        for off in range(0, n, B):
+            hi = min(off + B, n)
+            pts = codec.read_batch(bytes(s_in.slice_of(input_buf, off, hi)), comp_in, check)
+            _write_back(pipe, codec, pts, comp_out, s_out.slice_of(output, off, hi))
+
+
+def _write_back(pipe: Pipeline, codec: BatchPointCodec, pts: PointVec, compression: UseCompression,
+                dest) -> None:
+    """Queue the write of an affine point batch into the buffer view `dest`
+    on `pipe`."""
+    handle = codec.write_batch_start(pts, normalized=True)
+
+    def finish():
+        dest[:] = codec.write_batch_finish(handle, compression)
+
+    pipe.push(finish)

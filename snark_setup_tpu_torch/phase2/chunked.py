@@ -35,6 +35,7 @@ from ..shard import runtime
 from ..utils.device import resolve_device
 from ..utils.enums import CheckForCorrectness, UseCompression
 from ..utils.errors import InvalidLengthError, InvariantKind, NoContributionsError, SerializationError
+from ..utils.pipeline import Pipeline
 from ..utils.tracing import get_logger, info_span
 from .keypair import Keypair, Phase2PublicKey
 from .parameters import (
@@ -47,6 +48,10 @@ from .parameters import (
 from .vecio import Cursor, deser_element, ser_element
 
 logger = get_logger("snark_setup_tpu_torch.phase2.chunked")
+
+MUL_QUERY_DEPTH = 4
+"""Batches of `_batched_mul_inplace` whose write-back may be pending (the
+reference's `flush(limit=3)`)."""
 
 
 def _element_check(check: CheckForCorrectness) -> CheckForCorrectness:
@@ -128,17 +133,26 @@ def _batched_mul_inplace(
 ) -> None:
     """mul_query over batches (chunked_groth16.rs:387-466): read, the GLV
     scalar-mul ([scalar mod r]P: the codec's subgroup check under `check`
-    keeps the points in the subgroup), write back in place."""
+    keeps the points in the subgroup), write back in place. The write-backs
+    run through a pipeline of depth MUL_QUERY_DEPTH (the reference's
+    `flush(limit=3)`): a batch's bytes are packed once three more batches'
+    scalar-muls are queued."""
     codec = batch_codec(spec.name, "g1", device)
     ops = codec.ops
     raw = ints_to_limbs_batch([scalar], ops.fr.L).T  # (Ls, 1)
-    for lo, hi in _batches(span.count, batch_size):
-        start = span.offset + lo * span.el_size
-        end = span.offset + hi * span.el_size
-        pts = codec.read_batch(bytes(buf[start:end]), compression, check)
-        scalars = ops.fr.tensor(np.broadcast_to(raw, (ops.fr.L, hi - lo)), codec.device)
-        out = runtime.scalar_mul(ops, pts, scalars, codec.device)
-        buf[start:end] = codec.write_batch(out, compression, n_valid=hi - lo)
+    with Pipeline(MUL_QUERY_DEPTH, "mul_query") as pipe:
+        for lo, hi in _batches(span.count, batch_size):
+            start = span.offset + lo * span.el_size
+            end = span.offset + hi * span.el_size
+            pts = codec.read_batch(bytes(buf[start:end]), compression, check)
+            scalars = ops.fr.tensor(np.broadcast_to(raw, (ops.fr.L, hi - lo)), codec.device)
+            out = runtime.scalar_mul(ops, pts, scalars, codec.device)
+            handle = codec.write_batch_start(out)
+
+            def finish(start=start, end=end, handle=handle, n=hi - lo):
+                buf[start:end] = codec.write_batch_finish(handle, compression, n_valid=n)
+
+            pipe.push(finish)
 
 
 def contribute(

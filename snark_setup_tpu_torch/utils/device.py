@@ -2,6 +2,8 @@
 
 The port runs on the card unless the caller asks for the CPU: `device=None`
 means CUDA, and without a card that is an error, never a silent fallback.
+`to_device` moves host data to a device without making the host wait for
+the card.
 """
 
 from __future__ import annotations
@@ -22,3 +24,18 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def to_device(t, device) -> torch.Tensor:
+    """A host tensor or numpy array on `device`. To a card it is staged in
+    page-locked memory and copied on the current stream without a wait: a
+    plain copy from pageable memory first waits for all work queued on the
+    stream, which would stall the host behind the batches in flight.
+    Page-locked memory is not touched on the CPU (a CPU-only build has
+    none)."""
+    if not isinstance(t, torch.Tensor):
+        t = torch.from_numpy(t)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
