@@ -96,7 +96,7 @@ row's path, which scripts/compare_kernels.py --launch-weights reads; the
 square root's rows `team`, `products` (Montgomery products a lane) and
 `two_adicity`.
 After the default paths it runs BLS12-377 contributions in the modes they
-do not take, at MODES_POWER (12): `beacon`, chunked `contribute` (every
+do not take, at MODES_POWER (10): `beacon`, chunked `contribute` (every
 chunk) and Marlin `contribute`, each checked against the host oracle and
 the hash chain, with K3 and K4 launched on each; then their coordinator's
 side: chunked verification (two chunks), `combine` (Phase1.aggregation),
@@ -105,6 +105,15 @@ side: chunked verification (two chunks), `combine` (Phase1.aggregation),
 its decompression (Phase1.decompress) and Marlin verification, each
 file checked against the host codec's decoding of its source and the hash
 chain.
+Then the ceremony driver (scripts/torch_ceremony.py) runs its `chunked`
+plan, the steps and flags of scripts/phase1_chunked.sh, at the upstream
+CI's size (BW6-761, power 10, batch = chunk = 512: two participants a
+chunk, combine, beacon, full verification, ratios, split and the second
+round), each step through its CLI's `main(argv)` in this process, with the
+driver's checks (every `.hash` file, four lanes of every response against
+the host oracle) and every new challenge's hash chain (`bw6_761
+ceremony`; K3 + K4 on both groups, K2, the square root and the inversion
+must launch).
 Then phase 2 through the port's phase-2 CLIs (`circuit_main`,
 `prepare_phase2_main`, `phase2_main`; `phase2_phase(dev, curve, ...)`, one
 function for any curve, from the verified new challenge of that curve's
@@ -173,7 +182,9 @@ BATCH = 16384  # lanes per batch on the main path (the size bench.py uses)
 # script: cut to 13 to keep it near 80 % of its time limit
 MNT_POWER = 13  # MNT4-753 / MNT6-753 contributions: half a batch per G2 section
 BLS_VERIFY_POWER = 13  # the BLS12-377 verify path (G1 on K2, G2 on K5 rounds) and route paths
-MODES_POWER = 12  # the BLS12-377 beacon, chunked and Marlin contributions
+MODES_POWER = 10  # the BLS12-377 beacon, chunked and Marlin contributions (12 before the ceremony path)
+CEREMONY = ("bw6", 10, 512, 512)  # the upstream CI's end-to-end run: curve, power, batch, chunk size
+CEREMONY_PATH = "bw6_761 ceremony"
 RAGGED = 4097  # a batch that is no multiple of the kernels' block size
 PHASE2_CHUNK = 1 << 15  # `phase2 new --chunk-size` on the SHA-256 circuit: 2 chunks of its 2^16 h query
 PHASE2_PATHS = ("bw6_761 phase2", "bw6_761 prover", "bls12_377 phase2")
@@ -1506,6 +1517,57 @@ def modes_phase(dev, mode: str, power: int, batch: int, workdir: str) -> None:
           "decompress_wall_seconds": t_dec, "host_points_checked": checked, "chunks_equal_decompressed": True})
 
 
+def ceremony_phase(dev, workdir: str) -> None:
+    """The ceremony driver's `chunked` plan (scripts/torch_ceremony.py: the
+    steps and flags of scripts/phase1_chunked.sh) at the upstream CI's size,
+    BW6-761 at power 10, batch = chunk = 512: per chunk two participants
+    alternating contribute / verify-and-transform, combine, beacon, full
+    verification, ratios, split and the second round over the split chunks,
+    each step through its CLI's `main(argv)` in this process. The driver
+    checks every `.hash` file and four lanes of every response against the
+    host oracle; here every verification's new challenge also starts with
+    the Blake2b-512 of its response."""
+    import importlib.util
+    import io
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("torch_ceremony", os.path.join(here, "scripts", "torch_ceremony.py"))
+    driver = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = driver
+    spec.loader.exec_module(driver)
+    curve, power, batch, chunk = CEREMONY
+    cfg = driver.Config("chunked", curve, power, batch, chunk, device=dev.type)
+    os.makedirs(workdir)
+    driver.write_seeds(workdir, SEED, resume=False)
+    steps = driver.plan(cfg)
+    t0 = time.perf_counter()
+    records = driver.run(cfg, steps, workdir, inprocess=True, out=io.StringIO())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chained = 0
+    for step in steps:
+        if "verify-and-transform-pok-and-correctness" in step.argv:
+            (_, _), (resp, _), (new, _) = step.hashes
+            with open(os.path.join(workdir, new), "rb") as f:
+                if f.read(64) != driver.blake2b_file(os.path.join(workdir, resp)):
+                    raise AssertionError(f"ceremony {step.label}: {new} does not start with the hash of {resp}")
+            chained += 1
+    kinds = {}
+    for r in records:  # labels such as "split chunk 1 verify 2": the first kind named
+        kind = next(k for k in ("new", "contribute", "verify", "beacon", "combine", "ratios", "split")
+                    if k in r["step"].split())
+        kinds[kind] = kinds.get(kind, 0.0) + r["wall_seconds"]
+    emit({"phase": "ceremony", "profile": "chunked", "curve": "bw6_761", "power": power, "batch_size": batch,
+          "chunk_size": chunk, "steps": len(records), "wall_seconds": wall,
+          "seconds_by_kind": kinds, "slowest": max(records, key=lambda r: r["wall_seconds"])["step"],
+          "hash_files_checked": sum(r["hash_checks"] for r in records),
+          "oracle_points_checked": sum(r.get("oracle_points", 0) for r in records),
+          "new_challenges_chained": chained,
+          "ratios_accepted": sum(r["step"].startswith("ratios") for r in records)})
+
+
 def ladder_widths_phase(dev, rows: list) -> None:
     """The ladder kernel K4 at every width its main path launched (from the
     wrapper's `widths` count of that path) and at 1 lane, by its launch
@@ -2556,6 +2618,8 @@ def main() -> int:
             ("bls12_377 beacon", lambda: modes_phase(dev, "beacon", MODES_POWER, BATCH, dirs["modes"])),
             ("bls12_377 chunked", lambda: modes_phase(dev, "chunked", MODES_POWER, BATCH, dirs["modes"])),
             ("bls12_377 marlin", lambda: modes_phase(dev, "marlin", MODES_POWER, BATCH, dirs["modes"])),
+            # the ceremony driver's chunked plan at the upstream CI's size
+            (CEREMONY_PATH, lambda: ceremony_phase(dev, os.path.join(work, "ceremony"))),
             # phase 2 on BW6-761 from the verify path's new challenge: the
             # SHA-256 circuit's ceremony, then the prover gate
             ("bw6_761 phase2", lambda: phase2_phase(dev, "bw6_761", args.power, BATCH, bw6_dir, phase2_wrappers,
@@ -2586,6 +2650,8 @@ def main() -> int:
         also["mesh"] = ("glv_digits[bls12_377/g1]", "glv_ladder[bls12_377/g1]", "group_add[bls12_377/g1]",
                         "glv_digits[bw6_761/g1]", "glv_ladder[bw6_761/g1]", "group_add[bw6_761/g1]")
         also["portable"] = ("group_add[bw6_761/g1]", "group_dbl[bw6_761/g1]")
+        also[CEREMONY_PATH] = (*PHASE2_KERNELS, "group_dbl[bw6_761/g1]", "group_dbl[bw6_761/g2]",
+                               "fq_sqrt[bw6_761]", "fq_inv[bw6_761]")
         # K5 on the verify paths that still launch it: G2 over Fp2 (group law
         # and subgroup checks), the square root over Fq being its own kernel
         also["bls12_377 verify"] = ("stacked_mul[bls12_377]",)

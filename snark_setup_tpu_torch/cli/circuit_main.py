@@ -29,7 +29,7 @@ from ..phase2.vecio import Cursor
 from ..transcript.hashing import derive_rng_from_seed
 from ..utils.device import resolve_device
 from ..utils.enums import CheckForCorrectness, UseCompression
-from ..utils.tracing import configure_logging, get_logger
+from ..utils.tracing import configure_logging, get_logger, log_exit_counters
 from .fileio import write_to_file
 
 logger = get_logger("snark_setup_tpu_torch.cli.circuit")
@@ -100,6 +100,8 @@ def main(argv=None) -> int:
     except Exception:
         logger.exception("circuit %s failed", args.command)
         return 1
+    finally:
+        log_exit_counters(logger)
 
 
 if __name__ == "__main__":

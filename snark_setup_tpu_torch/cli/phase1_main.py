@@ -24,7 +24,7 @@ from ..utils.enums import (
     SubgroupCheckMode,
 )
 from ..utils.helpers import upgrade_correctness_check_config
-from ..utils.tracing import configure_logging, get_logger, maybe_profile
+from ..utils.tracing import configure_logging, get_logger, log_exit_counters, maybe_profile
 from . import phase1_cmds
 
 logger = get_logger("snark_setup_tpu_torch.cli.phase1")
@@ -179,6 +179,8 @@ def main(argv=None) -> int:
     except Exception:
         logger.exception("phase1 %s failed", args.command)
         return 1
+    finally:
+        log_exit_counters(logger)
     return 0
 
 

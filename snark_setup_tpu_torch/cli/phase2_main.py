@@ -18,7 +18,7 @@ from ..transcript.hashing import derive_rng_from_seed
 from ..utils.device import resolve_device
 from ..utils.enums import CheckForCorrectness, SubgroupCheckMode
 from ..utils.helpers import upgrade_correctness_check_config
-from ..utils.tracing import configure_logging, get_logger, maybe_profile
+from ..utils.tracing import configure_logging, get_logger, log_exit_counters, maybe_profile
 from . import phase2_cmds
 
 logger = get_logger("snark_setup_tpu_torch.cli.phase2")
@@ -168,6 +168,8 @@ def main(argv=None) -> int:
     except Exception:
         logger.exception("phase2 %s failed", args.command)
         return 1
+    finally:
+        log_exit_counters(logger)
     return 0
 
 

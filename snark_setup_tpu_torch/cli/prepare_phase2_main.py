@@ -15,7 +15,7 @@ from ..curves.constants import get_curve
 from ..phase1.parameters import Phase1Parameters
 from ..utils.device import resolve_device
 from ..utils.enums import ProvingSystem
-from ..utils.tracing import configure_logging, get_logger
+from ..utils.tracing import configure_logging, get_logger, log_exit_counters
 from .phase2_cmds import prepare_phase2
 
 logger = get_logger("snark_setup_tpu_torch.cli.prepare_phase2")
@@ -55,6 +55,8 @@ def main(argv=None) -> int:
     except Exception:
         logger.exception("prepare_phase2 failed")
         return 1
+    finally:
+        log_exit_counters(logger)
     logger.info("Executing prepare_phase2 took: %.2fs", time.time() - t0)
     return 0
 

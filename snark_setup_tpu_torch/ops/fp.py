@@ -27,6 +27,7 @@ Layout and conventions (identical to the reference at every seam):
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -316,8 +317,26 @@ class FpOps:
         return self._cond_sub_n(s[L:].to(torch.int32)).reshape(L, *shape[1:])
 
     def mont_mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Montgomery product a*b*R^{-1} mod N."""
-        return self.redc_cols(self.school_cols(a, b))
+        """Montgomery product a*b*R^{-1} mod N, over slices of the widest
+        batch axis of at most `lanes.MAX_LANES` elements a call: the product
+        columns take 16 L (L + 1) bytes an element (37.6 KB at L = 48), so
+        a 2^21-lane BW6-761 batch at once would need 79 GB."""
+        from . import lanes  # lanes imports curve, which imports this module
+
+        rest = _broadcast_rest(a.shape[1:], b.shape[1:])
+        total = math.prod(rest)
+        if total <= lanes.MAX_LANES:
+            return self.redc_cols(self.school_cols(a, b))
+        axis = max(range(-len(rest), 0), key=lambda i: rest[i])  # batch axes are right-aligned
+        width = max(1, lanes.MAX_LANES // (total // rest[axis]))
+
+        def take(t, lo):  # an operand broadcast along the axis stays whole
+            if t.dim() - 1 < -axis or t.shape[axis] == 1:
+                return t
+            return t.narrow(axis, lo, min(width, t.shape[axis] - lo))
+
+        return torch.cat([self.redc_cols(self.school_cols(take(a, lo), take(b, lo)))
+                          for lo in range(0, rest[axis], width)], dim=axis)
 
     def mont_sqr(self, a: torch.Tensor) -> torch.Tensor:
         return self.mont_mul(a, a)

@@ -27,6 +27,7 @@ import torch
 from ..curves.host import INFINITY, g1_curve, g2_curve
 from ..curves.pairing import pairing_engine
 from ..fields.limb import ints_to_limbs_batch
+from ..ops import lanes
 from ..ops.codec import BatchPointCodec, batch_codec
 from ..ops.curve import CurveOps, PointVec
 from ..ops.msm import RLC_BITS, msm_public, rlc_scalars_padded
@@ -806,8 +807,14 @@ def _batched_subgroup_sums(ops: CurveOps, pts: PointVec, bits_host: np.ndarray) 
     bits = to_device(np.ascontiguousarray(bits_host, bool), dev)
     inf = ops.infinity((1, 1), dev)
     F = ops.field
-    masked = PointVec({k: F.select(bits, pts[k].unsqueeze(-2), inf[k]) for k in "xyz"})
-    sums = ops.sum_reduce(masked)
+    # lanes in slices of MAX_LANES (a power of two): the (rounds, B) array of
+    # a 2^21-lane BW6-761 batch would take 77 GB at once. The tree adds
+    # lanes 2i and 2i + 1, so reducing each slice and then the slices' sums
+    # pairs the lanes as one reduction over the whole batch does.
+    sums = ops.sum_reduce(lanes.cat([
+        ops.sum_reduce(PointVec({k: F.select(bits[:, lo:hi], pts[k][..., lo:hi].unsqueeze(-2), inf[k])
+                                 for k in "xyz"}))
+        for lo, hi in lanes.spans(pts["x"].shape[-1])]))
     return PointVec({k: v[..., 0] for k, v in sums.items()})
 
 

@@ -6,8 +6,11 @@ subscriber configured by the SNARK_SETUP_LOG env var (mirroring RUST_LOG).
 """
 
 import contextlib
+import gc
+import json
 import logging
 import os
+import sys
 import time
 
 _CONFIGURED = False
@@ -28,6 +31,31 @@ def configure_logging(level: str | None = None) -> None:
 
 def get_logger(name: str) -> logging.Logger:
     return logging.getLogger(name)
+
+
+WRAPPER_MODULES = "snark_setup_tpu_torch.ops.cuda_"  # the kernel wrappers' modules
+
+
+def exit_counters() -> dict:
+    """What a command used of the card: the most device memory it held
+    (`torch.cuda.max_memory_allocated`, None if it never touched the card)
+    and the launches of every kernel wrapper that launched, by kernel."""
+    torch = sys.modules.get("torch")
+    peak = torch.cuda.max_memory_allocated() if torch is not None and torch.cuda.is_initialized() else None
+    launches: dict = {}
+    for o in gc.get_objects():
+        if str(getattr(type(o), "__module__", "")).startswith(WRAPPER_MODULES):
+            n = getattr(o, "__dict__", {}).get("launches")
+            if isinstance(n, int) and n:
+                name = getattr(o, "name", None) or type(o).__name__
+                launches[name] = launches.get(name, 0) + n
+    return {"peak_device_bytes": peak, "launches": launches}
+
+
+def log_exit_counters(logger: logging.Logger) -> None:
+    """One line at a CLI's exit, `exit counters {...}` (`exit_counters` as
+    JSON), which scripts/torch_ceremony.py reads."""
+    logger.info("exit counters %s", json.dumps(exit_counters(), sort_keys=True))
 
 
 @contextlib.contextmanager

@@ -192,7 +192,7 @@ def test_hostmath_copy_equals_reference():
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "torch_ceremony.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "snark_setup_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
